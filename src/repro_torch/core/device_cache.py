@@ -1,0 +1,95 @@
+"""DeviceSlabCache: device-resident per-bucket slab operands
+(DESIGN.md §13).
+
+Every filter backend gathers a bucket's rows out of the resident
+``FilterSlab`` and — for the cuda / torch paths — would upload the
+gathered operands to the device on *every* ``bounds`` call, even though
+the bucket → row-set mapping is fixed for the life of the slab.
+
+This cache keys on the bucket identity (the gathered row indices plus the
+pad size) and holds, per bucket, the host-side gathered sub-slab and the
+backend-specific device-resident operands, so each is built/transferred
+once per (bucket, layout) and reused across batches.  Entries are
+LRU-bounded; query-side operands (small, per-batch) are never cached.
+
+Ownership: one cache per ``BatchedFilterEval``, created with its slab and
+dropped with it, so a device copy never outlives the slab it mirrors.
+"""
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from typing import Any, Callable, Dict, Hashable, Tuple
+
+import numpy as np
+
+
+def bucket_key(idx: np.ndarray, n_pad: int) -> Tuple:
+    """Cache key for one gathered bucket: exact row identity + pad size.
+
+    The raw index bytes (not a lossy hash) — a key collision would swap
+    another bucket's slab in silently, and bit-identical candidates are
+    the repo's load-bearing invariant.
+    """
+    idx = np.ascontiguousarray(np.asarray(idx, np.int64))
+    return (int(n_pad), len(idx), idx.tobytes())
+
+
+class DeviceSlabCache:
+    """LRU cache of per-bucket gathered sub-slabs and their device
+    operands, shared by every backend path of one ``BatchedFilterEval``.
+    """
+
+    def __init__(self, max_entries: int = 16):
+        self.max_entries = int(max_entries)
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[Hashable, Dict[str, Any]]" = \
+            OrderedDict()                       # guarded_by: self._lock
+        self.stats: Dict[str, int] = {          # guarded_by: self._lock
+            "hits": 0, "misses": 0, "evictions": 0}
+        # duck-typed fault injector (serve.faults.FaultInjector); builds
+        # fire the ``device.cache`` point so upload/gather failures are
+        # injectable without a real device (DESIGN.md §18)
+        self._faults = None
+
+    def set_faults(self, faults) -> None:
+        self._faults = faults
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def snapshot(self) -> Dict[str, int]:
+        """Consistent copy of the counters plus the current size —
+        readers must not iterate ``stats`` while a builder commits."""
+        with self._lock:
+            out = dict(self.stats)
+            out["entries"] = len(self._entries)
+            return out
+
+    def get_or_build(self, key: Hashable, field: str,
+                     build: Callable[[], Any]) -> Any:
+        """Return the cached ``field`` of the ``key`` bucket, building it
+        on first use.  Distinct fields of one bucket (host gather, filter
+        operands, LB operands, ...) share the entry and its LRU slot."""
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None and field in entry:
+                self._entries.move_to_end(key)
+                self.stats["hits"] += 1
+                return entry[field]
+        # build outside the lock: gathers/uploads are slow and re-entrant
+        # callers (a field builder using another field) must not deadlock
+        if self._faults is not None:
+            self._faults.fire("device.cache", field=field)
+        value = build()
+        with self._lock:
+            entry = self._entries.setdefault(key, {})
+            self._entries.move_to_end(key)
+            # first writer wins so concurrent builders agree on the object
+            value = entry.setdefault(field, value)
+            self.stats["misses"] += 1
+            while len(self._entries) > self.max_entries:
+                self._entries.popitem(last=False)
+                self.stats["evictions"] += 1
+        return value

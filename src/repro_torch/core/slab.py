@@ -1,0 +1,277 @@
+"""FilterSlab: the serving representation a bucket's filter pass runs
+against (DESIGN.md §11).
+
+Two interchangeable F_D layouts behind one gather/c_d interface, so every
+backend (numpy / torch / cuda) sees the same slab protocol and produces
+bit-identical candidate sets:
+
+* ``dense``  — (B, U) int32 F_D; fastest on narrow vocabularies.
+* ``hot``    — dense hot prefix (B, H) over the frequency-ordered
+  vocabulary plus a CSR *tail* (ids >= H).  The device computes the
+  hot-prefix min-sum; the host adds the batched CSR tail correction to
+  C_D *before* thresholding (it seeds the filter kernel's C_D through
+  ``cdt``), which keeps the bound admissible (DESIGN.md §3).
+
+The ``packed`` layout (hybrid bit-packed rows decoded on device) needs
+the bit-unpack kernel, which this package does not have yet; asking for
+it raises ``NotImplementedError``.
+
+The non-F_D arrays (sizes, degree sequences, label histograms, region
+coordinates, branch features) are identical across layouts.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core.arrays import DBArrays
+from repro_torch.core.qgrams import EncodedDB
+
+LAYOUTS = ("dense", "hot")
+DEFAULT_HOT_D = 128
+_IMPOSSIBLE = -(2 ** 20)
+
+
+def hot_d_from_mass(enc: EncodedDB, mass: float) -> int:
+    """Data-tuned hot-prefix width: the smallest H whose frequency-ordered
+    columns ``[0, H)`` cover at least ``mass`` of the database's total
+    degree-q-gram count mass (the ``hot_mass`` option of
+    ``FlatMSQIndex.filter_eval`` and ``GraphQueryEngine``)."""
+    U = max(enc.vocab.n_degree_ids, 1)
+    if len(enc.d_ids) == 0 or mass <= 0.0:
+        return 1
+    counts = np.bincount(np.asarray(enc.d_ids, np.int64),
+                         weights=np.asarray(enc.d_cnt, np.float64),
+                         minlength=U)
+    total = float(counts.sum())
+    if total <= 0.0:
+        return 1
+    target = min(float(mass), 1.0) * total
+    cum = np.cumsum(counts)
+    # smallest H with cum[H-1] >= target (epsilon guards float equality)
+    H = int(np.searchsorted(cum, target - 1e-9, side="left")) + 1
+    return max(1, min(H, U))
+
+
+def branch_features(graphs, n_elabels: int, vmax: int
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-vertex *branch* structures for the assignment lower bound
+    (DESIGN.md §16): for every vertex its label, degree, and incident
+    edge-label histogram.  Padded to ``vmax`` with label -1 / degree 0 /
+    zero histograms — pad slots then price exactly like the ε
+    (insert/delete) column of the branch cost matrix, so the batched
+    min-reduce needs no explicit pad masking on the min axes.
+
+    Returns ``(vlab (B, vmax) int32, deg (B, vmax) int32,
+    ehist (B, vmax, n_elabels) int32)``.
+    """
+    B = len(graphs)
+    vlab = np.full((B, vmax), -1, np.int32)
+    deg = np.zeros((B, vmax), np.int32)
+    eh = np.zeros((B, vmax, max(n_elabels, 1)), np.int32)
+    for i, g in enumerate(graphs):
+        n = min(int(g.n), vmax)
+        vlab[i, :n] = np.asarray(g.vlabels[:n], np.int32)
+        if g.m:
+            edges = np.asarray(g.edges, np.int64)
+            elab = np.asarray(g.elabels, np.int64)
+            np.add.at(deg[i], edges.ravel(), 1)
+            np.add.at(eh[i], (edges.ravel(), np.repeat(elab, 2)), 1)
+    return vlab, deg, eh
+
+
+def _ragged_take(off: np.ndarray, ids: np.ndarray, cnt: np.ndarray,
+                 rows: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Gather CSR rows: new (off, ids, cnt) for ``rows`` in order."""
+    rows = np.asarray(rows, np.int64)
+    lengths = (off[rows + 1] - off[rows]).astype(np.int64)
+    new_off = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum(lengths, out=new_off[1:])
+    pos = (np.repeat(off[rows], lengths)
+           + np.arange(int(new_off[-1]), dtype=np.int64)
+           - np.repeat(new_off[:-1], lengths))
+    return new_off, ids[pos], cnt[pos]
+
+
+@dataclass
+class FilterSlab:
+    """One bucket-servable database slab in a chosen F_D layout.
+
+    Always-dense per-graph arrays (the filter cascade's small operands)
+    plus the F_D carrier: ``fd`` (dense (B, U) or hot (B, H)) and, for
+    ``hot``, the tail CSR (``t_off``/``t_ids``/``t_cnt``, ids >= hot_d).
+    """
+
+    layout: str
+    nv: np.ndarray
+    ne: np.ndarray
+    degseq: np.ndarray
+    vhist: np.ndarray
+    ehist: np.ndarray
+    region_i: np.ndarray
+    region_j: np.ndarray
+    U: int                       # full degree-vocabulary width
+    hot_d: int                   # == U for dense
+    vmax: int
+    fd: Optional[np.ndarray] = None
+    t_off: Optional[np.ndarray] = None
+    t_ids: Optional[np.ndarray] = None
+    t_cnt: Optional[np.ndarray] = None
+    # per-vertex branch structures for the stage-1.5 assignment lower
+    # bound (DESIGN.md §16) — layout-independent, like nv/degseq
+    bvlab: Optional[np.ndarray] = None           # (B, vmax), pad -1
+    bdeg: Optional[np.ndarray] = None            # (B, vmax), pad 0
+    behist: Optional[np.ndarray] = None          # (B, vmax, NE), pad 0
+    _t_rows: Optional[np.ndarray] = None         # lazy tail entry -> row map
+
+    # ---- construction -----------------------------------------------------
+    @classmethod
+    def build(cls, db, enc: EncodedDB, partition, *, layout: str = "dense",
+              hot_d: Optional[int] = None) -> "FilterSlab":
+        if layout == "packed":
+            raise NotImplementedError(
+                "the packed slab needs the bit-unpack kernel "
+                "(kernels/bitunpack), which is not ported yet; use the "
+                "dense or hot slab")
+        if layout not in LAYOUTS:
+            raise ValueError(f"unknown slab layout {layout!r} "
+                             f"(one of {LAYOUTS})")
+        from repro_torch.graphs.batching import PaddedGraphBatch
+        nv, ne = db.sizes()
+        vmax = int(max(nv.max(), 1)) if len(nv) else 1
+        batch = PaddedGraphBatch.from_db(db, vmax=vmax)
+        U = max(enc.vocab.n_degree_ids, 1)
+        ri, rj = partition.region_of(nv, ne)
+        slab = cls(
+            layout=layout,
+            nv=batch.nv.astype(np.int32), ne=batch.ne.astype(np.int32),
+            degseq=batch.degseq.astype(np.int32),
+            vhist=batch.vlabel_hist.astype(np.int32),
+            ehist=batch.elabel_hist.astype(np.int32),
+            region_i=ri.astype(np.int32), region_j=rj.astype(np.int32),
+            U=U, hot_d=U, vmax=vmax)
+        slab.bvlab, slab.bdeg, slab.behist = branch_features(
+            db.graphs, db.n_elabels, vmax)
+        if layout == "dense":
+            fd, _ = enc.dense_hot(U)
+            slab.fd = fd.astype(np.int32)
+        else:  # hot
+            # hot without a width takes the fixed default: it must not
+            # silently degenerate to the dense slab
+            H = max(1, min(DEFAULT_HOT_D if hot_d is None else int(hot_d), U))
+            slab.hot_d = H
+            fd, _ = enc.dense_hot(H)
+            slab.fd = fd.astype(np.int32)
+            mask = enc.d_ids >= H
+            row_of = np.repeat(np.arange(len(enc)), np.diff(enc.d_off))
+            slab.t_ids = enc.d_ids[mask].astype(np.int32)
+            slab.t_cnt = enc.d_cnt[mask].astype(np.int32)
+            t_off = np.zeros(len(enc) + 1, np.int64)
+            np.cumsum(np.bincount(row_of[mask], minlength=len(enc)),
+                      out=t_off[1:])
+            slab.t_off = t_off
+        return slab
+
+    @property
+    def B(self) -> int:
+        return len(self.nv)
+
+    # ---- bucket gather ----------------------------------------------------
+    def gather(self, idx: np.ndarray,
+               n_pad: Optional[int] = None) -> "FilterSlab":
+        """Row-gather a bucket sub-slab, optionally padded to ``n_pad``
+        with impossible graphs (never in-region, zero F_D)."""
+        idx = np.asarray(idx, np.int64)
+        n_pad = len(idx) if n_pad is None else int(n_pad)
+        pad = n_pad - len(idx)
+
+        def take(x, fill=0):
+            sub = np.asarray(x)[idx]
+            if pad:
+                widths = [(0, pad)] + [(0, 0)] * (sub.ndim - 1)
+                sub = np.pad(sub, widths, constant_values=fill)
+            return sub
+
+        sub = replace(
+            self, _t_rows=None,
+            nv=take(self.nv), ne=take(self.ne), degseq=take(self.degseq),
+            vhist=take(self.vhist), ehist=take(self.ehist),
+            region_i=take(self.region_i, _IMPOSSIBLE),
+            region_j=take(self.region_j, _IMPOSSIBLE),
+            bvlab=None if self.bvlab is None else take(self.bvlab, -1),
+            bdeg=None if self.bdeg is None else take(self.bdeg),
+            behist=None if self.behist is None else take(self.behist),
+            fd=take(self.fd))
+        if self.layout == "hot":
+            t_off, t_ids, t_cnt = _ragged_take(self.t_off, self.t_ids,
+                                               self.t_cnt, idx)
+            if pad:          # pad rows have empty tails
+                t_off = np.concatenate(
+                    [t_off, np.full(pad, t_off[-1], np.int64)])
+            sub.t_off, sub.t_ids, sub.t_cnt = t_off, t_ids, t_cnt
+        return sub
+
+    def in_rect(self, rect: Tuple[int, int, int, int]) -> np.ndarray:
+        i1, i2, j1, j2 = rect
+        m = ((self.region_i >= i1) & (self.region_i <= i2)
+             & (self.region_j >= j1) & (self.region_j <= j2))
+        return np.flatnonzero(m)
+
+    def base_arrays(self) -> DBArrays:
+        """The DBArrays a filter pass consumes; ``fd`` is the layout's
+        dense carrier (full matrix for dense, hot prefix for hot)."""
+        return DBArrays(nv=self.nv, ne=self.ne, degseq=self.degseq,
+                        vhist=self.vhist, ehist=self.ehist, fd=self.fd,
+                        region_i=self.region_i, region_j=self.region_j)
+
+    # ---- host C_D (numpy backend + hot tail seed) -------------------------
+    def cd_one(self, qfd: np.ndarray) -> np.ndarray:
+        """(B,) exact C_D against one full-width dense query F_D.
+
+        Query-sparse (DESIGN.md §13): only the query's nonzero columns are
+        gathered — ``min(F_D, 0) = 0`` makes the rest a guaranteed no-op,
+        so this is bit-identical to the full-width sweep."""
+        qfd = np.asarray(qfd, np.int64)
+        if self.layout == "hot":
+            ids = np.flatnonzero(qfd[:self.hot_d] > 0)
+            hot = np.minimum(self.fd[:, ids].astype(np.int64),
+                             qfd[ids][None, :]).sum(axis=1)
+            return hot + self.tail_minsum_one(qfd)
+        ids = np.flatnonzero(qfd[:self.fd.shape[1]] > 0)
+        return np.minimum(self.fd[:, ids].astype(np.int64),
+                          qfd[ids][None, :]).sum(axis=1)
+
+    def tail_minsum_one(self, qfd: np.ndarray) -> np.ndarray:
+        """(B,) batched CSR tail correction for one dense query F_D.
+
+        The tail CSR already holds only ids >= hot_d, and the query is
+        dense, so this is one gather + bincount over the tail nnz; the
+        query-independent entry->row map is computed once per slab.
+        """
+        if self._t_rows is None:
+            self._t_rows = np.repeat(np.arange(self.B),
+                                     np.diff(self.t_off))
+        qfd = np.asarray(qfd, np.int64)
+        contrib = np.minimum(self.t_cnt.astype(np.int64),
+                             qfd[self.t_ids])
+        return np.bincount(self._t_rows, weights=contrib,
+                           minlength=self.B).astype(np.int64)
+
+    def tail_minsum_batch(self, qfds: np.ndarray) -> np.ndarray:
+        """(Q, B) tail corrections for a stacked query block."""
+        return np.stack([self.tail_minsum_one(q) for q in qfds])
+
+    # ---- size accounting (DESIGN.md §11) ----------------------------------
+    def size_bits(self) -> Dict[str, int]:
+        """Bits of the layout-specific F_D carrier (the slab parts shared
+        by every layout are excluded — they don't differentiate)."""
+        fd_bits = self.fd.size * 32
+        if self.layout == "dense":
+            return {"fd": fd_bits, "total": fd_bits}
+        tail_bits = (len(self.t_ids) * 32 + len(self.t_cnt) * 32
+                     + len(self.t_off) * 64)
+        return {"fd": fd_bits, "tail": tail_bits,
+                "total": fd_bits + tail_bits}

@@ -1,0 +1,125 @@
+"""Structured per-query spans in a bounded ring buffer (DESIGN.md §17).
+
+A ``Span`` is a closed host-time interval ``[t0, t1]`` (both from
+``time.perf_counter()``) with a stage name, the logical thread it ran
+on, an optional query id, and free-form args.  The serving stack records
+one per pipeline stage — ``admission → encode → bucket → filter →
+assign_lb → worklist → verify (per A* slice) → resolve`` plus ``queue``
+and ``topk_round`` — so a single query's deadline budget can be read off
+a trace instead of guessed from global counters.
+
+``SpanRecorder`` is a deque ring under one lock: bounded (old spans
+drop, ``dropped`` counts them), cheap (one lock trip per record, no
+allocation beyond the Span), and disabled by default in production
+engines — ``record()`` is a single attribute check when off, which is
+what keeps the measured tracing overhead within the ≤2% budget.
+
+``perf_counter`` is CLOCK_MONOTONIC (system-wide) on the Linux hosts
+this runs on — the same property the scheduler's cross-process deadlines
+already rely on — so span fragments recorded inside process-pool workers
+land on the same timeline as host spans.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+__all__ = ["Span", "SpanRecorder"]
+
+
+@dataclass(frozen=True)
+class Span:
+    """One recorded stage interval (host perf_counter seconds)."""
+    name: str
+    t0: float
+    t1: float
+    tid: str                       # logical thread (or pool worker) name
+    qid: Optional[int] = None      # engine-assigned query id, if any
+    args: Dict = field(default_factory=dict)
+
+    @property
+    def dur(self) -> float:
+        return self.t1 - self.t0
+
+
+class SpanRecorder:
+    """Bounded ring of ``Span``s shared by every pipeline stage."""
+
+    def __init__(self, capacity: int = 65536, enabled: bool = True):
+        self.enabled = bool(enabled)
+        self.capacity = int(capacity)
+        self._lock = threading.Lock()
+        self._ring: "deque[Span]" = \
+            deque(maxlen=self.capacity)       # guarded_by: self._lock
+        self._dropped = 0                     # guarded_by: self._lock
+
+    def record(self, name: str, t0: float, t1: float, *,
+               qid: Optional[int] = None, tid: Optional[str] = None,
+               **args) -> None:
+        """Record one closed interval.  Callers time with their own
+        ``perf_counter`` reads (usually already taken for the stats
+        counters) so recording never adds a clock call to the hot path
+        beyond what the stage measured anyway."""
+        if not self.enabled:
+            return
+        if tid is None:
+            tid = threading.current_thread().name
+        span = Span(name, float(t0), float(t1), tid, qid, args)
+        with self._lock:
+            if len(self._ring) == self.capacity:
+                self._dropped += 1
+            self._ring.append(span)
+
+    @contextmanager
+    def span(self, name: str, *, qid: Optional[int] = None, **args):
+        """Context-manager sugar for stages without pre-taken timestamps."""
+        if not self.enabled:
+            yield
+            return
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.record(name, t0, time.perf_counter(), qid=qid, **args)
+
+    def extend(self, spans) -> None:
+        """Fold span fragments from elsewhere (process-pool workers,
+        subprocess shards) onto this ring."""
+        if not self.enabled:
+            return
+        with self._lock:
+            for s in spans:
+                if len(self._ring) == self.capacity:
+                    self._dropped += 1
+                self._ring.append(s)
+
+    def spans(self) -> List[Span]:
+        with self._lock:
+            return list(self._ring)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+            self._dropped = 0
+
+    @property
+    def dropped(self) -> int:
+        with self._lock:
+            return self._dropped
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._ring)
+
+    def aggregate(self) -> Dict[str, Tuple[int, float]]:
+        """Per-stage ``name -> (count, total seconds)`` over the ring —
+        the per-stage breakdown table in ``examples/serve_requests.py``."""
+        out: Dict[str, Tuple[int, float]] = {}
+        for s in self.spans():
+            n, tot = out.get(s.name, (0, 0.0))
+            out[s.name] = (n + 1, tot + s.dur)
+        return out

@@ -1,0 +1,1190 @@
+"""GraphQueryEngine: batched multi-query graph similarity serving.
+
+Answers a batch of (query graph, tau) requests over a ``CandidateSource``
+(``FlatMSQIndex``) in four stages (DESIGN.md §10):
+
+  1. **bucket** queries by reduced query region
+     (``core.engine.bucket_queries``) so each region's graphs are gathered
+     once per batch,
+  2. **gather** each bucket's slab into one padded block, kept resident
+     on the backend's device,
+  3. **filter**: the leaf-level cascade per bucket, then the stage-1.5
+     assignment LB over its survivors (``core.engine.BatchedFilterEval``
+     — the CUDA kernels on the ``cuda`` backend, their plain PyTorch
+     versions on ``torch``, the host oracle on ``numpy``),
+  4. **worklist**: candidate blocks from all queries drain into one shared
+     ``VerifyScheduler`` — a cheapest-candidate-first priority worklist
+     through ``ged_upto`` (low filter bounds are both likelier matches and
+     cheaper A* runs, so early results stream out first).  ``submit``
+     drains it inline, the one-worker special case; the scheduler also
+     runs verifier threads or a process pool against the same heap
+     (DESIGN.md §12).
+
+Repeat queries hit two LRU caches: query *encodings* (the q-gram
+``QueryTuple``, reusable across taus) and whole *results* (exact
+(graph, tau, verify) hits, replayed with ``cache_hit`` tagged in stats and
+the stale timings zeroed).  The single-query ``query()`` is a thin
+wrapper over a one-element batch.
+"""
+from __future__ import annotations
+
+import heapq
+import itertools
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import dataclass, field, replace
+from typing import (Callable, Dict, List, Optional, Sequence, Tuple)
+
+import numpy as np
+
+from repro_torch.core.engine import CandidateSource
+from repro_torch.core.search import QueryResult
+from repro_torch.core.tree import QueryTuple
+from repro_torch.core.verify import GEDSearch
+from repro_torch.device import resolve_device
+from repro_torch.graphs.graph import Graph
+from repro_torch.obs import (MetricsRegistry, Observability, StatsView,
+                             use_obs)
+from repro_torch.obs.health import StageHealth
+
+
+class _PoolBroken(Exception):
+    """Internal: the process pool died under this slice.  The search
+    state is untouched (the pool round-trips a *copy*), so the caller
+    re-enqueues the pair at its current frontier instead of retiring
+    it — raised and caught inside this module only."""
+
+
+@dataclass
+class GraphQuery:
+    """One similarity-search request.  ``deadline_s`` (seconds, relative
+    to worklist admission) bounds verification: expired candidate pairs
+    are skipped and the result is flagged ``partial`` in stats — recall
+    safe, because the candidate list is never truncated (DESIGN.md §12).
+
+    ``top_k`` switches the query modality from range-τ to k-nearest
+    (DESIGN.md §15): the result's ``matches`` are the ``top_k`` graphs
+    with the smallest ``(ged, gid)`` among all graphs with ged <= ``tau``
+    (``tau`` becomes the search *cap*, bounding the NP-hard verification),
+    sorted by ``(ged, gid)`` ascending.  Answered by adaptive-τ
+    escalation: the filter cascade runs at a cheap τ first and re-enters
+    at a widened τ until the kth-best confirmed distance proves no wider
+    τ can help — never recomputing a decided (query, gid) pair."""
+
+    graph: Graph
+    tau: int
+    verify: bool = True
+    deadline_s: Optional[float] = None
+    top_k: Optional[int] = None
+    # admission-control identity (DESIGN.md §18); None = the anonymous
+    # tenant.  Ignored by the sync path and by caching (tenancy never
+    # changes an answer).
+    tenant: Optional[str] = None
+
+    def __post_init__(self):
+        if self.top_k is not None:
+            if int(self.top_k) < 1:
+                raise ValueError("top_k must be >= 1")
+            if not self.verify:
+                raise ValueError(
+                    "top_k requires verify=True: ranking needs exact GEDs, "
+                    "filter lower bounds alone cannot order the k-nearest")
+
+
+def _graph_key(g: Graph) -> bytes:
+    """Content key for the caches (exact array equality, not isomorphism)."""
+    e = np.asarray(g.edges, np.int64).reshape(-1)
+    return b"|".join((np.asarray(g.vlabels, np.int64).tobytes(),
+                      e.tobytes(),
+                      np.asarray(g.elabels, np.int64).tobytes()))
+
+
+def _approx_nbytes(obj) -> int:
+    """Rough resident-byte estimate for cache accounting (DESIGN.md §18):
+    numpy arrays by ``nbytes``, containers by recursive walk, scalars at
+    CPython ballpark.  An accounting bound for eviction decisions, not a
+    ``sys.getsizeof`` ground truth — both cached types (``QueryTuple``,
+    ``QueryResult``) are flat bundles of arrays/lists, so the walk is
+    shallow and cycle-free."""
+    if obj is None:
+        return 0
+    if isinstance(obj, np.ndarray):
+        return int(obj.nbytes) + 96
+    if isinstance(obj, (bytes, bytearray)):
+        return len(obj) + 33
+    if isinstance(obj, str):
+        return len(obj) + 49
+    if isinstance(obj, (int, float, bool)):
+        return 28
+    if isinstance(obj, (list, tuple, set, frozenset)):
+        return 56 + 8 * len(obj) + sum(_approx_nbytes(x) for x in obj)
+    if isinstance(obj, dict):
+        return 64 + sum(_approx_nbytes(k) + _approx_nbytes(v)
+                        for k, v in obj.items())
+    d = getattr(obj, "__dict__", None)
+    if d is not None:
+        return 64 + _approx_nbytes(d)
+    slots = getattr(type(obj), "__slots__", ())
+    return 64 + sum(_approx_nbytes(getattr(obj, s, None)) for s in slots)
+
+
+class _LRU:
+    """Tiny LRU with a lock: admission may read while verifier workers
+    publish finished results.
+
+    Bounded by entry count and — when ``max_bytes``/``sizeof`` are given —
+    by estimated resident bytes, whichever trips first, so a burst of
+    huge graphs cannot balloon the cache past its memory budget
+    (DESIGN.md §18).  High-water marks are tracked here and exported by
+    the owning engine's registry; ``on_hwm`` (if set) is invoked with
+    ``(bytes_hwm, entries_hwm)`` *outside* the lock after a put that
+    raised either mark."""
+
+    def __init__(self, maxsize: int, max_bytes: Optional[int] = None,
+                 sizeof: Optional[Callable] = None,
+                 on_hwm: Optional[Callable] = None):
+        self.maxsize = maxsize
+        self.max_bytes = max_bytes
+        self._sizeof = sizeof
+        self._on_hwm = on_hwm
+        self._lock = threading.Lock()
+        self._d: OrderedDict = OrderedDict()    # guarded_by: self._lock
+        self._sizes: Dict = {}                  # guarded_by: self._lock
+        self._bytes = 0                         # guarded_by: self._lock
+        self.bytes_hwm = 0                      # guarded_by: self._lock
+        self.entries_hwm = 0                    # guarded_by: self._lock
+        self.hits = 0                           # guarded_by: self._lock
+        self.misses = 0                         # guarded_by: self._lock
+
+    def get(self, key):
+        with self._lock:
+            if key in self._d:
+                self._d.move_to_end(key)
+                self.hits += 1
+                return self._d[key]
+            self.misses += 1
+            return None
+
+    def _evict_locked(self, key) -> None:    # guarded_by: self._lock
+        del self._d[key]
+        self._bytes -= self._sizes.pop(key, 0)
+
+    def put(self, key, value) -> None:
+        sz = 0
+        if self._sizeof is not None:
+            sz = int(self._sizeof(value))   # size outside any eviction path
+        hwm = None
+        with self._lock:
+            if key in self._d:
+                self._bytes -= self._sizes.pop(key, 0)
+            self._d[key] = value
+            self._d.move_to_end(key)
+            self._sizes[key] = sz
+            self._bytes += sz
+            while len(self._d) > self.maxsize:
+                self._evict_locked(next(iter(self._d)))
+            if self.max_bytes is not None:
+                # may evict down to empty: one over-budget value still
+                # never holds more than itself, and it ages out next put
+                while self._bytes > self.max_bytes and len(self._d) > 1:
+                    self._evict_locked(next(iter(self._d)))
+            raised = False
+            if self._bytes > self.bytes_hwm:
+                self.bytes_hwm = self._bytes
+                raised = True
+            if len(self._d) > self.entries_hwm:
+                self.entries_hwm = len(self._d)
+                raised = True
+            if raised and self._on_hwm is not None:
+                hwm = (self.bytes_hwm, self.entries_hwm)
+        if hwm is not None:
+            # registry publish happens outside self._lock (lock ordering:
+            # never hold a cache lock across the metrics registry's)
+            self._on_hwm(*hwm)
+
+    def usage(self) -> Dict[str, int]:
+        with self._lock:
+            return {"entries": len(self._d), "bytes": self._bytes,
+                    "bytes_hwm": self.bytes_hwm,
+                    "entries_hwm": self.entries_hwm}
+
+
+class VerifyJob:
+    """One query's verification context on the shared worklist."""
+
+    __slots__ = ("graph", "tau", "deadline", "remaining", "matches",
+                 "verify_s", "unverified", "pruned", "should_skip",
+                 "on_match", "on_done", "token", "qid", "t_enq")
+
+    def __init__(self, graph: Graph, tau: int, deadline: Optional[float],
+                 token=None, on_match=None, on_done=None, should_skip=None,
+                 qid: Optional[int] = None):
+        self.graph = graph
+        self.tau = int(tau)
+        self.deadline = deadline
+        self.remaining = 0
+        self.matches: List[Tuple[int, int]] = []
+        self.verify_s = 0.0
+        self.unverified = 0
+        self.pruned = 0
+        self.should_skip = should_skip
+        self.on_match = on_match
+        self.on_done = on_done
+        self.token = token
+        self.qid = qid                  # engine query id (span correlation)
+        self.t_enq = time.perf_counter()
+
+
+class TopKState:
+    """Per-query adaptive-τ escalation state for ``top_k`` queries
+    (DESIGN.md §15).
+
+    The filter τ starts cheap (0) and widens each round — jumping
+    straight to the kth-best confirmed distance once k matches exist —
+    while every admitted (query, gid) pair runs its ``GEDSearch`` at the
+    query's *cap*, never the round τ.  A round-τ cutoff would poison the
+    frontier for later rounds (children pruned at ``cost > τ_r`` are
+    unrecoverable), so the cap cutoff is what keeps decisions final and
+    frontiers resumable across escalation: ``seen`` gids are never
+    resubmitted, which is the no-recompute invariant the scheduler stats
+    assert in tests.
+
+    ``confirmed`` is fed live from verifier threads (``record_match``)
+    so the worklist's ``should_skip`` hook prunes pairs that can no
+    longer displace the current kth-best — sound regardless of timing,
+    because a pair with ``(bound, gid)`` lexicographically above the kth
+    confirmed ``(ged, gid)`` can never enter the answer set."""
+
+    __slots__ = ("k", "cap", "tau", "deadline", "rounds", "seen",
+                 "confirmed", "filter_s", "lb_s", "verify_s", "unverified",
+                 "pruned", "deadline_hit", "_lock")
+
+    def __init__(self, k: int, cap: int, deadline: Optional[float] = None):
+        self.k = int(k)
+        self.cap = int(cap)
+        self.tau = 0                    # round τ (filter admission only)
+        self.deadline = deadline
+        self.rounds = 0
+        self.seen: set = set()          # gids ever submitted to the worklist
+        self.confirmed: Dict[int, int] = {}     # guarded_by: self._lock
+        self.filter_s = 0.0
+        self.lb_s = 0.0
+        self.verify_s = 0.0
+        self.unverified = 0
+        self.pruned = 0
+        self.deadline_hit = False
+        self._lock = threading.Lock()
+
+    def record_match(self, gid: int, d: int) -> None:
+        with self._lock:
+            self.confirmed[int(gid)] = int(d)
+
+    def kth(self) -> Optional[Tuple[int, int]]:
+        """The current kth-best confirmed ``(ged, gid)``, or None while
+        fewer than k matches are confirmed."""
+        with self._lock:
+            if len(self.confirmed) < self.k:
+                return None
+            return sorted((d, g)
+                          for g, d in self.confirmed.items())[self.k - 1]
+
+    def should_skip(self, gid: int, bound: int) -> bool:
+        """Worklist pruning hook: a pair whose (lower bound, gid) already
+        exceeds the kth-best confirmed (ged, gid) can never enter the
+        top-k (its final ged >= bound), so running it is wasted A*."""
+        kth = self.kth()
+        return kth is not None and (int(bound), int(gid)) > kth
+
+    def topk_matches(self) -> List[Tuple[int, int]]:
+        """The k smallest confirmed ``(ged, gid)``, as (gid, ged) tuples
+        sorted by (ged, gid) ascending — the deterministic tie rule."""
+        with self._lock:
+            best = sorted((d, g)
+                          for g, d in self.confirmed.items())[:self.k]
+        return [(g, d) for d, g in best]
+
+    def absorb_round(self, job: VerifyJob) -> None:
+        """Fold one drained round's accounting into the query state (the
+        match set itself arrives live via ``record_match``)."""
+        self.verify_s += job.verify_s
+        self.unverified += job.unverified
+        self.pruned += job.pruned
+
+    def satisfied(self) -> bool:
+        """True when no wider τ can change the answer: the kth-best
+        confirmed distance is covered by the τ the filter already ran at
+        (every graph with a smaller (ged, gid) had a lower bound <= its
+        ged <= d_k <= τ, so it was admitted and decided), or the cap has
+        been reached with every candidate decided."""
+        if self.tau >= self.cap:
+            return True
+        kth = self.kth()
+        return kth is not None and kth[0] <= self.tau
+
+    def escalate(self) -> None:
+        """Widen the filter τ for the next round: geometric growth while
+        fewer than k matches are confirmed, else one adaptive jump to the
+        kth-best distance (the round that proves optimality)."""
+        kth = self.kth()
+        if kth is not None:
+            self.tau = min(self.cap, max(int(kth[0]), self.tau + 1))
+        else:
+            self.tau = min(self.cap, max(1, 2 * self.tau))
+
+
+class VerifyScheduler:
+    """Stage 4: the shared cheapest-first GED worklist (DESIGN.md §12).
+
+    One priority heap of ``(bound, seq, job, gid, search)`` items across
+    every in-flight query.  ``GraphQueryEngine.submit`` drains it inline
+    on the calling thread — the one-worker special case — while verifier
+    threads (``worker_loop``) run against the same pop/run loop, so every
+    path shares ordering, deadline handling and accounting.
+
+    Per-pair A* runs are budgeted (``slice_expansions``) and *resumable*:
+    an undecided ``GEDSearch`` is re-pushed at its improved frontier bound
+    (``min_f``), which keeps the heap honestly cheapest-first as bounds
+    tighten and lets many expensive pairs timeslice one worker.  A pair
+    popped (or interrupted) past its job's deadline is counted
+    ``unverified`` instead of run — the caller flags the query partial,
+    never drops candidates.
+
+    ``executor="process"`` offloads each A* slice to a
+    ``ProcessPoolExecutor`` of ``workers`` processes
+    (``core.verify.run_search_slice`` over the picklable ``GEDSearch``),
+    so verification stops sharing the GIL with the filter pass.  Pop
+    order, resume semantics, and
+    deadline handling are unchanged (the slice is a pure function of the
+    search state), so results stay bit-identical to the thread/inline
+    executor.  Call ``shutdown()`` once no more pairs will run; the pool
+    must outlive every draining worker, so ``close()`` deliberately does
+    not touch it.
+    """
+
+    # every counter pre-initialized (no conditional ``.get`` defaults in
+    # the hot loop, and snapshot keys are stable for the engine's fold)
+    STAT_KEYS = ("verified_pairs", "expired_pairs", "resumed_runs",
+                 "lb_pruned", "lb_tightened", "pruned_pairs",
+                 "pool_fallbacks", "pool_rebuilds", "error_pairs")
+
+    def __init__(self, db, slice_expansions: Optional[int] = None,
+                 interval_sink: Optional[List[Tuple[float, float]]] = None,
+                 executor: str = "inline", workers: int = 1,
+                 obs: Optional[Observability] = None, faults=None,
+                 dispatch_retries: int = 2, max_pool_rebuilds: int = 2):
+        if executor not in ("inline", "thread", "process"):
+            raise ValueError(f"unknown executor {executor!r} "
+                             "(inline | thread | process)")
+        self.db = db
+        # spans go to the owning engine's ring; counters live in this
+        # scheduler's own registry (sync paths spin up one scheduler per
+        # submit and fold its snapshot into the engine — a shared
+        # registry would double-count across those folds)
+        self.obs = obs
+        self.metrics = MetricsRegistry()
+        # <= 0 means unbudgeted: a zero-pop slice would make GEDSearch.run
+        # return undecided with no progress and the re-push loop livelock
+        self.slice_expansions = (int(slice_expansions)
+                                 if slice_expansions and slice_expansions > 0
+                                 else None)
+        self.workers = max(1, int(workers))
+        # duck-typed fault injector (serve.faults.FaultInjector): fires
+        # ``verify.slice`` per pair and ``verify.pool`` per pool dispatch
+        self.faults = faults
+        self.dispatch_retries = max(0, int(dispatch_retries))
+        self.max_pool_rebuilds = max(0, int(max_pool_rebuilds))
+        # poisoned-pool health (DESIGN.md §18): repeated breakage trips
+        # FAILING and slices go straight in-process until a probe passes
+        self.pool_health = StageHealth(
+            "verify_pool", fail_threshold=2, probe_interval=4,
+            registry=obs.metrics if obs is not None else self.metrics)
+        self._pool = None
+        self._want_pool = executor == "process"
+        self._pool_closed = False   # guarded_by: self._cv
+        if self._want_pool:
+            self._pool = self._make_pool()
+        self._seq = itertools.count()
+        self._cv = threading.Condition()
+        self._heap: list = []       # guarded_by: self._cv
+        self._inflight = 0          # guarded_by: self._cv
+        self._closed = False        # guarded_by: self._cv
+        self._interval_sink = interval_sink
+        # a registry view, not a dict (DESIGN.md §17): same keys and
+        # mutation idiom, but snapshot/merge-able with every other
+        # component.  Mutations stay under self._cv as before — the view
+        # only adds the registry's own lock per access.
+        self.stats: StatsView = self.metrics.view(
+            "sched", initial={k: 0 for k in self.STAT_KEYS})
+
+    def stats_snapshot(self) -> Dict[str, int]:
+        """Consistent copy of the worklist counters (readers must not
+        iterate ``stats`` while a verifier thread is publishing)."""
+        return self.stats.snapshot()
+
+    def _make_pool(self):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        # spawn, not fork: the parent has torch / CUDA threads, and the
+        # child only needs the torch-free core.verify module anyway
+        return ProcessPoolExecutor(
+            max_workers=self.workers,
+            mp_context=multiprocessing.get_context("spawn"))
+
+    def _on_pool_broken(self, pool) -> None:
+        """A dispatch saw ``BrokenProcessPool``: retire the poisoned pool
+        and — within the rebuild budget — stand up a fresh one so later
+        slices regain process parallelism.  Concurrent observers of the
+        same broken pool race benignly: only the first swaps it out, the
+        rest see ``self._pool is not pool`` and return."""
+        self.pool_health.record_failure()
+        rebuild = False
+        with self._cv:
+            self.stats["pool_fallbacks"] += 1
+            if self._pool is not pool or self._pool_closed:
+                return
+            self._pool = None
+            if self.stats["pool_rebuilds"] < self.max_pool_rebuilds:
+                self.stats["pool_rebuilds"] += 1
+                rebuild = True
+        pool.shutdown(wait=False)   # reap outside the lock; workers are dead
+        if not rebuild:
+            return
+        fresh = self._make_pool()
+        with self._cv:
+            if self._pool is None and not self._pool_closed:
+                self._pool = fresh
+                fresh = None
+        if fresh is not None:       # lost the race / closing: discard it
+            fresh.shutdown(wait=False)
+
+    # ---- producer side -----------------------------------------------------
+    def add_job(self, graph: Graph, tau: int, ids: Sequence[int],
+                bounds: Sequence[int], *, deadline: Optional[float] = None,
+                token=None, on_match: Optional[Callable] = None,
+                on_done: Optional[Callable] = None,
+                should_skip: Optional[Callable] = None,
+                n_lb_pruned: int = 0, n_lb_tightened: int = 0,
+                qid: Optional[int] = None) -> VerifyJob:
+        """Enqueue one query's candidate pairs (cheapest bound first is
+        the heap's job).  ``on_done`` fires exactly once, on the thread
+        that retires the query's last pair (immediately, on the calling
+        thread, for candidate-less queries).  ``should_skip(gid, bound)``
+        is consulted at pop time — a True verdict retires the pair as
+        ``pruned`` without running A* (the top-k kth-best cutoff).
+
+        ``n_lb_pruned`` / ``n_lb_tightened`` account the stage-1.5
+        assignment-LB merge that happened *before* this call (DESIGN.md
+        §16): pairs the LB already decided (``lb > τ``) never reach the
+        heap, so the no-redecide invariant becomes
+        ``verified + pruned + expired + lb_pruned == |candidates seen|``."""
+        if n_lb_pruned or n_lb_tightened:
+            with self._cv:
+                self.stats["lb_pruned"] += int(n_lb_pruned)
+                self.stats["lb_tightened"] += int(n_lb_tightened)
+        job = VerifyJob(graph, tau, deadline, token=token,
+                        on_match=on_match, on_done=on_done,
+                        should_skip=should_skip, qid=qid)
+        job.remaining = len(ids)
+        if not ids:
+            if on_done is not None:
+                on_done(job)
+            return job
+        with self._cv:
+            for b, gid in zip(bounds, ids):
+                heapq.heappush(self._heap,
+                               (int(b), next(self._seq), job, int(gid), None))
+            self._cv.notify_all()
+        return job
+
+    def close(self) -> None:
+        """No more jobs will be added: workers exit once the heap drains.
+        (The process pool, if any, stays up — draining workers still
+        dispatch into it; call ``shutdown()`` after they are joined.)"""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+
+    def shutdown(self, wait: bool = True) -> None:
+        """Stop the process-pool executor (idempotent, no-op inline).
+        Marks the pool closed first so a concurrent broken-pool recovery
+        can never rebuild a pool that would leak past shutdown."""
+        with self._cv:
+            self._pool_closed = True
+            pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=wait)
+
+    # ---- consumer side -----------------------------------------------------
+    def _pop(self, block: bool):
+        with self._cv:
+            while True:
+                if self._heap:
+                    return heapq.heappop(self._heap)
+                if not block or self._closed:
+                    return None
+                self._cv.wait()
+
+    def run_until_idle(self) -> None:
+        """Drain on the calling thread (the sync one-worker case).  With a
+        process pool and ``workers > 1``, temporary dispatcher threads
+        keep that many A* slices in flight — they only block on futures,
+        so the GIL stays free for the pool to be the parallelism."""
+        if self._pool is not None and self.workers > 1:
+            threads = [threading.Thread(target=self._drain_cooperative,
+                                        daemon=True)
+                       for _ in range(self.workers)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            return
+        self._drain_nonblocking()
+
+    def _drain_nonblocking(self) -> None:
+        while True:
+            item = self._pop(block=False)
+            if item is None:
+                return
+            self._run_item(item)
+
+    def _drain_cooperative(self) -> None:
+        """Multi-dispatcher drain: a transiently empty heap is not done —
+        an in-flight resumable slice may re-push work, so dispatchers
+        wait while any peer still runs a pair and only exit when the heap
+        is empty AND nothing is in flight."""
+        while True:
+            with self._cv:
+                while True:
+                    if self._heap:
+                        item = heapq.heappop(self._heap)
+                        self._inflight += 1
+                        break
+                    if self._inflight == 0:
+                        return
+                    self._cv.wait()
+            try:
+                self._run_item(item)
+            finally:
+                with self._cv:
+                    self._inflight -= 1
+                    self._cv.notify_all()
+
+    def worker_loop(self) -> None:
+        """Blocking drain for pool threads; returns after ``close()`` once
+        the heap is empty."""
+        while True:
+            item = self._pop(block=True)
+            if item is None:
+                return
+            self._run_item(item)
+
+    def _execute(self, search: GEDSearch, deadline,
+                 qid: Optional[int] = None):
+        """One A* slice, in-process or on the pool.  Returns the decision
+        (or None) plus the search holding the advanced frontier — the
+        pool round-trips the search object, so resume works identically
+        either way.  With spans enabled, the pool also round-trips a
+        worker-side ``(t0, t1, pid)`` fragment with the pickled search
+        (``perf_counter`` is system-wide monotonic on these hosts), so
+        the A* compute interval lands on the trace inside the host-side
+        dispatch span."""
+        pool = self._pool
+        want_span = self.obs is not None and self.obs.spans.enabled
+        if pool is not None and not self.pool_health.allow_primary():
+            # FAILING pool is sticky-skipped between probes: slices go
+            # straight in-process without paying a doomed dispatch
+            self.metrics.counter_add("sched.pool_skips")
+            pool = None
+        if pool is not None:
+            from concurrent.futures.process import BrokenProcessPool
+            from repro_torch.core.verify import run_search_slice
+            if self.faults is not None:
+                # kill_worker specs act here, right before the dispatch
+                self.faults.fire("verify.pool", pool=pool)
+            fut = None
+            for attempt in range(self.dispatch_retries + 1):
+                try:
+                    fut = pool.submit(run_search_slice, search,
+                                      self.slice_expansions, deadline,
+                                      want_span)
+                    break
+                except BrokenProcessPool:
+                    # broken before dispatch (a worker died under an
+                    # earlier slice): same recovery as a mid-slice break
+                    self._on_pool_broken(pool)
+                    raise _PoolBroken() from None
+                except (OSError, RuntimeError):
+                    # transient dispatch failure (queue hiccup / raced
+                    # shutdown): back off and retry before falling back
+                    if attempt < self.dispatch_retries:
+                        time.sleep(0.005 * (2 ** attempt))
+            if fut is not None:
+                try:
+                    out = fut.result()
+                except BrokenProcessPool:
+                    # worker died mid-slice; the search state here is
+                    # untouched (the pool ran a pickled copy), so hand
+                    # the pair back to the heap at its current frontier
+                    # and retire/rebuild the poisoned pool
+                    self._on_pool_broken(pool)
+                    raise _PoolBroken() from None
+                # any other exception came from the A* slice itself and
+                # re-raises unchanged — _run_item counts it once as an
+                # error pair, with no duplicate in-process run
+                if out is not None:
+                    self.pool_health.record_success()
+                    if len(out) == 3:
+                        d, search, frag = out
+                        if want_span and frag is not None:
+                            self.obs.spans.record(
+                                "astar_slice", frag[0], frag[1], qid=qid,
+                                tid=f"ged-pool-{frag[2]}")
+                        return d, search
+                    return out
+            # a dead pool degrades to in-process slices (slower, never
+            # wrong): results must not depend on the pool's health
+            with self._cv:
+                self.stats["pool_fallbacks"] += 1
+        return (search.run(max_expansions=self.slice_expansions,
+                           deadline=deadline), search)
+
+    def _run_item(self, item) -> None:
+        """Run one pair.  Contained like the filter stage: an exception
+        anywhere in the A*/delivery path counts the pair unverified and
+        still retires it — a raising pair must never kill a verifier
+        thread or leave its query's countdown stuck (DESIGN.md §12)."""
+        bound, _seq, job, gid, search = item
+        finish = True
+        try:
+            t0 = time.perf_counter()
+            if job.deadline is not None and t0 >= job.deadline:
+                with self._cv:
+                    job.unverified += 1
+                    self.stats["expired_pairs"] += 1
+                return
+            # top-k pruning: once the job's kth-best is confirmed, pairs
+            # whose (bound, gid) can no longer displace it are retired
+            # without A*.  A resumed pair's bound reflects its improved
+            # frontier min_f, so partially-run searches prune too.
+            if job.should_skip is not None \
+                    and job.should_skip(int(gid), int(bound)):
+                with self._cv:
+                    job.pruned += 1
+                    self.stats["pruned_pairs"] += 1
+                return
+            if search is None:
+                # the heap bound is a provable GED lower bound (filter
+                # bound merged with the stage-1.5 assignment LB), so it
+                # seeds A* directly: lb > τ decides τ+1 with zero
+                # expansions and min_f never reports below it (§16)
+                search = GEDSearch(self.db[gid], job.graph, job.tau,
+                                   initial_bound=int(bound))
+            else:
+                with self._cv:
+                    self.stats["resumed_runs"] += 1
+            exp0 = search.expansions
+            if self.faults is not None:
+                self.faults.fire("verify.slice", qid=job.qid, gid=int(gid))
+            d, search = self._execute(search, job.deadline, qid=job.qid)
+            t1 = time.perf_counter()
+            obs = self.obs
+            if obs is not None and obs.spans.enabled:
+                # per-slice verify span: which pair, at what seed bound,
+                # how much A* it burned, and whether it decided (§17)
+                obs.spans.record(
+                    "verify", t0, t1, qid=job.qid, gid=int(gid),
+                    bound=int(bound), expansions=search.expansions - exp0,
+                    decided=d is not None)
+            self.metrics.observe("sched.verify_slice_s", t1 - t0)
+            with self._cv:
+                job.verify_s += t1 - t0
+                if self._interval_sink is not None:
+                    self._interval_sink.append((t0, t1))
+            if d is None:
+                if job.deadline is not None and t1 >= job.deadline:
+                    with self._cv:
+                        job.unverified += 1
+                        self.stats["expired_pairs"] += 1
+                    return
+                # timesliced: resume later at the improved frontier bound
+                with self._cv:
+                    heapq.heappush(self._heap,
+                                   (max(int(bound), search.min_f()),
+                                    next(self._seq), job, gid, search))
+                    self._cv.notify()
+                finish = False
+                return
+            with self._cv:
+                self.stats["verified_pairs"] += 1
+                if d <= job.tau:
+                    job.matches.append((gid, d))
+            if d <= job.tau and job.on_match is not None:
+                job.on_match(job, gid, d)
+        except _PoolBroken:
+            # the pool died under this pair, not the pair under the pool:
+            # its search state is intact, so re-enqueue at the frontier it
+            # already reached (min_f) — never restart from scratch, never
+            # retire it unverified (the satellite invariant tests assert
+            # exactly one GEDSearch construction per pair)
+            with self._cv:
+                heapq.heappush(self._heap,
+                               (max(int(bound), search.min_f()),
+                                next(self._seq), job, gid, search))
+                self._cv.notify()
+            finish = False
+        except Exception:               # noqa: BLE001 — stage containment
+            with self._cv:
+                job.unverified += 1
+                self.stats["error_pairs"] += 1
+        finally:
+            if finish:
+                self._finish_one(job)
+
+    def _finish_one(self, job: VerifyJob) -> None:
+        with self._cv:
+            job.remaining -= 1
+            done = job.remaining == 0
+        if done and self.obs is not None and self.obs.spans.enabled:
+            # the query's whole worklist residency: enqueue -> last pair
+            self.obs.spans.record(
+                "worklist", job.t_enq, time.perf_counter(), qid=job.qid,
+                matches=len(job.matches), unverified=job.unverified,
+                pruned=job.pruned)
+        if done and job.on_done is not None:
+            try:
+                job.on_done(job)
+            except Exception:           # lint: disable=SRV001
+                pass                    # last-resort guard: delivery errors
+                                        # must not kill the worker (on_done
+                                        # resolves its own ticket with the
+                                        # error first)
+
+
+class GraphQueryEngine:
+    """Batched filter-and-verify serving over a ``CandidateSource``.
+
+    ``backend='cuda'`` (the default) runs the filter and LB stages through
+    the CUDA kernels and raises at construction without a CUDA device —
+    it never moves to the CPU by itself.  ``backend='torch'`` runs the
+    kernels' plain PyTorch versions on ``device`` (the CUDA device unless
+    named, e.g. ``device='cpu'``); ``backend='numpy'`` runs the host
+    oracle."""
+
+    def __init__(self, source: CandidateSource, backend: str = "cuda",
+                 device=None, encoding_cache_size: int = 1024,
+                 result_cache_size: int = 256, slab_layout: str = "dense",
+                 hot_d: Optional[int] = None,
+                 hot_mass: Optional[float] = None,
+                 assign_lb: bool = True, lb_hungarian: int = 0,
+                 obs: Optional[Observability] = None,
+                 encoding_cache_bytes: Optional[int] = None,
+                 result_cache_bytes: Optional[int] = None, faults=None):
+        self.source = source
+        self.backend = backend
+        self.device = resolve_device(backend, device)
+        self.slab_layout = slab_layout
+        self.hot_d = hot_d
+        self.hot_mass = hot_mass
+        # stage-1.5 assignment-LB knobs (DESIGN.md §16): the batched
+        # branch bound between the q-gram filter and A* verification;
+        # lb_hungarian > 0 additionally runs the exact Hungarian
+        # assignment on that many top-LB survivors per query
+        self.assign_lb = bool(assign_lb)
+        self.lb_hungarian = int(lb_hungarian)
+        # every engine carries an Observability (DESIGN.md §17): the
+        # registry backs the ``stats`` view below; span recording stays
+        # off unless the caller opts in (the ≤2% overhead budget)
+        self.obs = obs if obs is not None else Observability(spans=False)
+        # duck-typed fault injector, threaded to the filter evaluator per
+        # call (DESIGN.md §18)
+        self.faults = faults
+        # caches are entry-bounded and — with *_cache_bytes — also
+        # byte-bounded; high-water marks surface as gauges (max-merge)
+        reg = self.obs.metrics
+        self._enc_cache = _LRU(
+            encoding_cache_size, max_bytes=encoding_cache_bytes,
+            sizeof=_approx_nbytes if encoding_cache_bytes else None,
+            on_hwm=lambda b, n: (
+                reg.gauge_set("engine.enc_cache_bytes_hwm", b),
+                reg.gauge_set("engine.enc_cache_entries_hwm", n)))
+        self._res_cache = _LRU(
+            result_cache_size, max_bytes=result_cache_bytes,
+            sizeof=_approx_nbytes if result_cache_bytes else None,
+            on_hwm=lambda b, n: (
+                reg.gauge_set("engine.res_cache_bytes_hwm", b),
+                reg.gauge_set("engine.res_cache_entries_hwm", n)))
+        self._qid = itertools.count()   # per-engine query ids for spans
+        self.stats: StatsView = self.obs.metrics.view("engine", initial={
+            "batches": 0, "queries": 0, "filter_s": 0.0, "verify_s": 0.0,
+            "lb_s": 0.0, "verified_pairs": 0, "expired_pairs": 0,
+            "pruned_pairs": 0, "lb_pruned": 0, "lb_tightened": 0,
+            "resumed_runs": 0, "pool_fallbacks": 0, "pool_rebuilds": 0,
+            "error_pairs": 0, "cache_hits": 0, "topk_rounds": 0})
+
+    # ---- encoding cache ----------------------------------------------------
+    def _qtuple(self, g: Graph) -> Tuple[bytes, QueryTuple]:
+        key = _graph_key(g)
+        qt = self._enc_cache.get(key)
+        if qt is None:
+            t0 = time.perf_counter()
+            qt = QueryTuple.from_graph(g, self.source.vocab)
+            if self.obs.spans.enabled:
+                self.obs.spans.record("encode", t0, time.perf_counter())
+            self._enc_cache.put(key, qt)
+        return key, qt
+
+    # ---- candidate generation (stages 1-3 and 1.5) -------------------------
+    def _batched_candidates(self, graphs, taus, qtuples):
+        return self.source.batched_candidates(
+            graphs, taus, qtuples=qtuples, backend=self.backend,
+            device=self.device, slab=self.slab_layout, hot_d=self.hot_d,
+            hot_mass=self.hot_mass, assign_lb=self.assign_lb,
+            lb_hungarian=self.lb_hungarian, faults=self.faults)
+
+    # ---- shared stages (submit composes them inline) -----------------------
+    def _admit(self, requests: Sequence[GraphQuery]):
+        """Stage 0: result-cache replay + in-batch duplicate coalescing.
+
+        Returns (results, fresh, aliases, keys, qtuples, qids);
+        ``results`` has cache hits already resolved — tagged
+        ``cache_hit`` with the stale per-query timings (filter, verify,
+        lb, queue) zeroed, so replayed stats are never mistaken for
+        fresh filter/verify work.  ``qids`` are the engine-assigned
+        query ids correlating this batch's spans."""
+        t_adm = time.perf_counter()
+        results: List[Optional[QueryResult]] = [None] * len(requests)
+        fresh: List[int] = []
+        aliases: List[Tuple[int, int]] = []      # (request idx, source idx)
+        pending: Dict[Tuple, int] = {}
+        keys: List[Optional[bytes]] = [None] * len(requests)
+        qtuples: List[Optional[QueryTuple]] = [None] * len(requests)
+        qids: List[int] = [next(self._qid) for _ in requests]
+        spans_on = self.obs.spans.enabled
+        for i, r in enumerate(requests):
+            key, qt = self._qtuple(r.graph)
+            # the cache key carries the full query modality: a range-τ
+            # entry must never answer a top_k query (or vice versa) —
+            # same graph, same τ, different answer shape (DESIGN.md §15)
+            k3 = (key, int(r.tau), bool(r.verify),
+                  None if r.top_k is None else int(r.top_k))
+            hit = self._res_cache.get(k3)
+            if hit is not None:
+                # cached results are always complete (partials are never
+                # cached), so a deadline-carrying request may take them too
+                self.stats["cache_hits"] += 1
+                results[i] = replace(
+                    hit, filter_time_s=0.0, verify_time_s=0.0,
+                    stats={**hit.stats, "cache_hit": 1,
+                           "lb_s": 0.0, "queue_s": 0.0})
+                if spans_on:
+                    now = time.perf_counter()
+                    self.obs.spans.record("query", t_adm, now,
+                                          qid=qids[i], cache_hit=1)
+                continue
+            # in-batch coalescing must also match on the deadline: a
+            # deadline-free duplicate aliased to a deadline-carrying one
+            # would silently inherit its partial (recall-lossy) result
+            k4 = k3 + (r.deadline_s,)
+            if k4 in pending:
+                aliases.append((i, pending[k4]))  # duplicate in this batch
+            else:
+                pending[k4] = i
+                fresh.append(i)
+                keys[i] = key
+                qtuples[i] = qt
+        if spans_on:
+            self.obs.spans.record("admission", t_adm, time.perf_counter(),
+                                  n=len(requests), fresh=len(fresh))
+        return results, fresh, aliases, keys, qtuples, qids
+
+    def _cache_result(self, key: bytes, request: GraphQuery,
+                      res: QueryResult) -> None:
+        self._res_cache.put(
+            (key, int(request.tau), bool(request.verify),
+             None if request.top_k is None else int(request.top_k)), res)
+
+    @staticmethod
+    def _job_bounds(batch, row: int) -> List[int]:
+        bnd = batch.bounds[row]
+        if bnd is None:                      # tree sources carry no bounds
+            return [0] * len(batch.ids[row])
+        return [int(b) for b in bnd]
+
+    @staticmethod
+    def _job_lbs(batch, row: int) -> Optional[Sequence[int]]:
+        """The row's stage-1.5 assignment LBs, or None when the source
+        computed none (tree sources, ``assign_lb=False``)."""
+        lbs = getattr(batch, "lbs", None)
+        return None if lbs is None else lbs[row]
+
+    @staticmethod
+    def _job_lb_share(batch, row: int) -> float:
+        """The row's share of the batch's assignment-LB pass time, in
+        seconds (0.0 for sources that don't report it)."""
+        lb_s = getattr(batch, "lb_s", None)
+        return 0.0 if lb_s is None else float(lb_s[row])
+
+    @staticmethod
+    def _merge_lb(ids: Sequence[int], bounds: Sequence[int],
+                  lbs: Optional[Sequence[int]], tau: int):
+        """Fold the stage-1.5 assignment LBs into one query's worklist
+        admission (DESIGN.md §16).  A pair with ``lb > τ`` is already
+        decided (GED >= lb), so it never enters the heap; survivors seed
+        A* at the tighter ``max(filter bound, lb)``.  The candidate
+        *list* is untouched by the caller — the LB prunes work, never
+        recall.  Returns (ids, bounds, n_lb_pruned, n_lb_tightened)."""
+        if lbs is None:
+            return list(ids), list(bounds), 0, 0
+        keep_ids: List[int] = []
+        keep_bounds: List[int] = []
+        pruned = tightened = 0
+        for g, b, lb in zip(ids, bounds, lbs):
+            lb = int(lb)
+            if lb > int(tau):
+                pruned += 1
+                continue
+            if lb > int(b):
+                tightened += 1
+                b = lb
+            keep_ids.append(int(g))
+            keep_bounds.append(int(b))
+        return keep_ids, keep_bounds, pruned, tightened
+
+    @staticmethod
+    def _assemble(cand: List[int], job: Optional[VerifyJob], n_db: int,
+                  per_q_filter: float, lb_s: float = 0.0) -> QueryResult:
+        stats: Dict[str, int] = {"batched": 1, "lb_s": lb_s}
+        matches: List[Tuple[int, int]] = []
+        verify_s = 0.0
+        if job is not None:
+            matches = sorted(job.matches)
+            verify_s = job.verify_s
+            if job.unverified:
+                # deadline fired: matches may be incomplete but candidates
+                # are untouched — recall-safe partial (DESIGN.md §12)
+                stats["partial"] = 1
+                stats["unverified"] = job.unverified
+        return QueryResult(
+            candidates=cand, matches=matches, n_filtered=n_db - len(cand),
+            filter_time_s=per_q_filter, verify_time_s=verify_s, stats=stats)
+
+    def _assemble_topk(self, st: TopKState, n_db: int) -> QueryResult:
+        """Result for one top-k query from its escalation state: matches
+        are the k smallest (ged, gid) — the deterministic tie rule — and
+        candidates are every gid ever admitted across rounds (never
+        truncated, the recall-safety analog of the range path)."""
+        matches = st.topk_matches()
+        stats: Dict[str, int] = {
+            "batched": 1, "lb_s": st.lb_s, "top_k": st.k,
+            "topk_rounds": st.rounds, "topk_tau_final": st.tau,
+            "topk_pruned": st.pruned}
+        if len(matches) < st.k:
+            stats["topk_exhausted"] = 1   # fewer than k graphs within cap
+        if st.unverified or st.deadline_hit:
+            # deadline fired mid-escalation: the verified prefix is
+            # returned, flagged partial, and never cached (DESIGN.md §15)
+            stats["partial"] = 1
+            stats["unverified"] = st.unverified
+        cand = sorted(st.seen)
+        return QueryResult(
+            candidates=cand, matches=matches, n_filtered=n_db - len(cand),
+            filter_time_s=st.filter_s, verify_time_s=st.verify_s,
+            stats=stats)
+
+    def _fold_scheduler_stats(self, sched: VerifyScheduler) -> None:
+        """Fold a drained scheduler's counters into the engine registry —
+        the one merge path shared by the sync range and sync top-k
+        drains."""
+        ss = sched.stats_snapshot()
+        for k in VerifyScheduler.STAT_KEYS:
+            self.stats[k] += ss[k]
+
+    def _submit_topk(self, requests: Sequence[GraphQuery],
+                     fresh: List[int], keys, qtuples, results,
+                     qids: Sequence[int], t_sub: float) -> None:
+        """The sync adaptive-τ escalation loop (DESIGN.md §15): per round,
+        one joint filter pass over every still-active top-k query at its
+        own round τ, then the shared cheapest-first worklist drains the
+        *new* pairs (decided gids are never resubmitted).  Escalation
+        stops per query when its kth-best confirmed distance is covered
+        by the round τ, the cap is reached, or its deadline fires."""
+        sched = VerifyScheduler(self.source.db, obs=self.obs)
+        now = time.perf_counter()
+        spans_on = self.obs.spans.enabled
+        states: Dict[int, TopKState] = {}
+        for i in fresh:
+            r = requests[i]
+            deadline = (None if r.deadline_s is None
+                        else now + float(r.deadline_s))
+            states[i] = TopKState(int(r.top_k), int(r.tau), deadline)
+        n_db = len(self.source.db)
+        active = list(fresh)
+        while active:
+            graphs = [requests[i].graph for i in active]
+            taus = [states[i].tau for i in active]
+            t0 = time.perf_counter()
+            with use_obs(self.obs):
+                batch = self._batched_candidates(
+                    graphs, taus, [qtuples[i] for i in active])
+            t1 = time.perf_counter()
+            self.stats["filter_s"] += t1 - t0
+            if spans_on:
+                self.obs.spans.record("filter", t0, t1, rows=len(active),
+                                      backend=self.backend)
+            share = (t1 - t0) / len(active)
+            jobs: Dict[int, VerifyJob] = {}
+            for row, i in enumerate(active):
+                st = states[i]
+                st.rounds += 1
+                self.stats["topk_rounds"] += 1
+                st.filter_s += share
+                lb_share = self._job_lb_share(batch, row)
+                st.lb_s += lb_share
+                self.stats["lb_s"] += lb_share
+                bounds = self._job_bounds(batch, row)
+                lbs = self._job_lbs(batch, row)
+                keep = [c for c, g in enumerate(batch.ids[row])
+                        if int(g) not in st.seen]
+                new_ids = [int(batch.ids[row][c]) for c in keep]
+                st.seen.update(new_ids)   # lb-pruned gids stay "seen":
+                # they are decided (GED >= lb > cap), never resubmitted
+                w_ids, w_bounds, n_pr, n_tt = self._merge_lb(
+                    new_ids, [bounds[c] for c in keep],
+                    None if lbs is None else [int(lbs[c]) for c in keep],
+                    st.cap)
+                # pairs run at the query CAP, not the round τ — decisions
+                # stay final and frontiers resumable (DESIGN.md §15)
+                jobs[i] = sched.add_job(
+                    requests[i].graph, st.cap, w_ids, w_bounds,
+                    deadline=st.deadline,
+                    on_match=lambda job, g, d, s=st: s.record_match(g, d),
+                    should_skip=st.should_skip,
+                    n_lb_pruned=n_pr, n_lb_tightened=n_tt, qid=qids[i])
+            sched.run_until_idle()   # the one-worker special case
+            still: List[int] = []
+            for i in active:
+                st = states[i]
+                st.absorb_round(jobs[i])
+                now = time.perf_counter()
+                if spans_on:
+                    self.obs.spans.record("topk_round", t0, now,
+                                          qid=qids[i], tau=st.tau,
+                                          round=st.rounds)
+                expired = st.deadline is not None and now >= st.deadline
+                if st.unverified or expired:
+                    st.deadline_hit = True
+                if st.deadline_hit or st.satisfied():
+                    res = self._assemble_topk(st, n_db)
+                    results[i] = res
+                    if not (st.unverified or st.deadline_hit):
+                        self._cache_result(keys[i], requests[i], res)
+                    if spans_on:
+                        self.obs.spans.record(
+                            "query", t_sub, time.perf_counter(),
+                            qid=qids[i], top_k=st.k,
+                            partial=int(bool(res.stats.get("partial"))))
+                else:
+                    st.escalate()
+                    still.append(i)
+            active = still
+        self.stats["verify_s"] += sum(s.verify_s for s in states.values())
+        self._fold_scheduler_stats(sched)
+
+    # ---- the batched path --------------------------------------------------
+    def submit(self, requests: Sequence[GraphQuery]) -> List[QueryResult]:
+        """Answer a batch; results align with ``requests`` order."""
+        t_sub = time.perf_counter()
+        spans_on = self.obs.spans.enabled
+        self.stats["batches"] += 1
+        self.stats["queries"] += len(requests)
+        results, all_fresh, aliases, keys, qtuples, qids = \
+            self._admit(requests)
+        fresh = [i for i in all_fresh if requests[i].top_k is None]
+        fresh_topk = [i for i in all_fresh if requests[i].top_k is not None]
+        if fresh:
+            graphs = [requests[i].graph for i in fresh]
+            taus = [int(requests[i].tau) for i in fresh]
+
+            # stages 1-3: bucket, shard the slab, filter (source-specific)
+            t0 = time.perf_counter()
+            with use_obs(self.obs):
+                batch = self._batched_candidates(
+                    graphs, taus, [qtuples[i] for i in fresh])
+            t1 = time.perf_counter()
+            self.stats["filter_s"] += t1 - t0
+            if spans_on:
+                self.obs.spans.record("filter", t0, t1, rows=len(fresh),
+                                      backend=self.backend)
+
+            # stage 4: shared verification worklist, cheapest pair first
+            sched = VerifyScheduler(self.source.db, obs=self.obs)
+            now = time.perf_counter()
+            jobs: Dict[int, VerifyJob] = {}
+            for row, i in enumerate(fresh):
+                r = requests[i]
+                if not r.verify:
+                    continue
+                deadline = (None if r.deadline_s is None
+                            else now + float(r.deadline_s))
+                w_ids, w_bounds, n_pr, n_tt = self._merge_lb(
+                    batch.ids[row], self._job_bounds(batch, row),
+                    self._job_lbs(batch, row), taus[row])
+                jobs[row] = sched.add_job(
+                    r.graph, taus[row], w_ids, w_bounds, deadline=deadline,
+                    n_lb_pruned=n_pr, n_lb_tightened=n_tt, qid=qids[i])
+            sched.run_until_idle()   # the one-worker special case
+            self.stats["verify_s"] += sum(j.verify_s for j in jobs.values())
+            self._fold_scheduler_stats(sched)
+
+            n_db = len(self.source.db)
+            per_q_filter = (t1 - t0) / max(len(fresh), 1)
+            for row, i in enumerate(fresh):
+                job = jobs.get(row)
+                lb_share = self._job_lb_share(batch, row)
+                self.stats["lb_s"] += lb_share
+                res = self._assemble(batch.ids[row], job, n_db,
+                                     per_q_filter, lb_s=lb_share)
+                results[i] = res
+                # deadline-partial results are never cached: a later query
+                # without the deadline must not replay incomplete matches
+                if job is None or not job.unverified:
+                    self._cache_result(keys[i], requests[i], res)
+                if spans_on:
+                    self.obs.spans.record(
+                        "query", t_sub, time.perf_counter(), qid=qids[i],
+                        tau=taus[row],
+                        partial=int(bool(res.stats.get("partial"))))
+        if fresh_topk:
+            self._submit_topk(requests, fresh_topk, keys, qtuples, results,
+                              qids, t_sub)
+        # resolve from results, not the cache: small caches may already
+        # have evicted the entry by the time the batch finishes
+        for i, src in aliases:
+            results[i] = results[src]
+        return results  # type: ignore[return-value]
+
+    # ---- single-query wrappers ---------------------------------------------
+    def query(self, graph: Graph, tau: int, verify: bool = True) -> QueryResult:
+        return self.submit([GraphQuery(graph, tau, verify)])[0]
+
+    def query_topk(self, graph: Graph, k: int, cap: int,
+                   deadline_s: Optional[float] = None) -> QueryResult:
+        """k-nearest within a GED cap: matches are the k smallest
+        (ged, gid), sorted by (ged, gid) — see ``GraphQuery.top_k``."""
+        return self.submit([GraphQuery(graph, cap, top_k=k,
+                                       deadline_s=deadline_s)])[0]
+
+    @property
+    def cache_info(self) -> Dict[str, int]:
+        enc, res = self._enc_cache.usage(), self._res_cache.usage()
+        return {"encoding_hits": self._enc_cache.hits,
+                "encoding_misses": self._enc_cache.misses,
+                "result_hits": self._res_cache.hits,
+                "result_misses": self._res_cache.misses,
+                "encoding_bytes": enc["bytes"],
+                "encoding_bytes_hwm": enc["bytes_hwm"],
+                "encoding_entries_hwm": enc["entries_hwm"],
+                "result_bytes": res["bytes"],
+                "result_bytes_hwm": res["bytes_hwm"],
+                "result_entries_hwm": res["entries_hwm"]}

@@ -15,6 +15,8 @@ sys.path.insert(0, os.path.dirname(__file__))  # tests/_propshim.py fallback
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: heavy cases excluded from the tier-1 fast run")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
 
 
 def pytest_addoption(parser):
