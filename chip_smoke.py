@@ -10,19 +10,32 @@ Phases, each of which asserts and ends the run non-zero on failure:
 1. **build**: compile ``src/repro_torch/csrc/*.cu`` with nvcc (one process
    per source, all started together) into ``build/kernels/``, timed.
 2. **kernels**: each CUDA kernel against its plain PyTorch version on the
-   same CUDA tensors, at the shapes the msq_aids main path gives it
-   (a 3-query bucket padded to Q=8, B=10,240 graphs, U=1851 padded to
-   2048; the LB at Q=8, N=64, VMq=64, VM=56).  Every value is an int32,
-   so the tolerance is zero.  Timed with CUDA events (and the profiler's
-   device time where it reports one).
+   same CUDA tensors, at the shapes the msq_aids paths give it: the
+   batched filter at a 3-query bucket padded to Q=8, B=10,240 graphs,
+   U=1851 padded to 2048; the LB at Q=8, N=64, VMq=64, VM=56; the
+   bit-unpack decode of a 10,240-row bucket (KB=15 blocks, W=128 words a
+   row, msq_aids's widths) into its (10,240, 2048) F_D block, and again
+   with rows at every width up to 32, in the row and the flat form; the
+   single-query filter at B=10,240, U=2048 with a C_D seed in aux
+   column 4; the rank popcount over 1,310,720 words (5,120 blocks).
+   Every value is an int32, so the tolerance is zero.  Timed with CUDA
+   events (and the profiler's device time where it reports one).
 3. **slice**: the full msq_aids configuration (42,687 AIDS-like graphs,
-   ``FlatMSQIndex``, dense slab, assignment LB on), one batch of 64 range
-   queries at tau=3 (2-edit perturbations of database graphs, rng seed 7)
-   through ``GraphQueryEngine`` on the ``cuda`` backend, with the kernel
-   launch counters reset just before and read just after; then the same
-   batch on the ``torch`` backend (plain versions on the card) and the
-   ``numpy`` backend (host oracle).  Candidates, filter bounds, LBs and
-   matches must be identical across the three.
+   ``FlatMSQIndex``, assignment LB on), one batch of 64 range queries at
+   tau=3 (2-edit perturbations of database graphs, rng seed 7) through
+   ``GraphQueryEngine``.  The dense slab on the ``cuda`` backend, with
+   the kernel launch counters reset just before and read just after;
+   then the same batch on the ``torch`` backend (plain versions on the
+   card) and the ``numpy`` backend (host oracle).  Then the packed slab
+   on ``cuda`` (counters reset and read around it: one bit-unpack and
+   one filter launch per non-empty bucket), and its candidate pass on
+   ``torch`` and ``numpy``.  Candidates, filter bounds, LBs and matches
+   must be identical across backends and slabs.
+4. **entry points**: the single-query filter (``fused_filter_bounds``,
+   one query over the whole slab, against the host oracle) and the rank
+   dictionary (``build_rank_dictionary`` + ``rank1_query`` over a
+   41,996,333-bit bitmap, against a numpy prefix count), each with its
+   counter reset and read around it.
 
 Then the card's name and power limit (``nvidia-smi``), one JSON line with
 the kernel table, and, last, ``{"ok": true, "device": {...}}``.  Without a
@@ -47,6 +60,11 @@ SRC = os.path.join(ROOT, "src")
 # figure (128 FP32 lanes, 2 FLOPs per FMA)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# rank-dictionary sizes: the kernel's timed input (5,120 blocks of 256
+# words, 42 Mbit) and the entry point's bitmap, the size of the msq_aids
+# q-gram tree's S_b that the JAX package's MSQIndex.size_bits() reports
+RANK_WORDS = 1310720
+RANK_BITS = 41996333
 
 
 def fail(msg: str) -> None:
@@ -219,14 +237,43 @@ def lb_inputs(rng, Q=8, N=64, VMq=64, VM=56, NE=3, NVL=62):
             (qv, qd, qeh, qn, dv, dd, deh, dn)]
 
 
+def packed_inputs(rng, B=10240, U=1851):
+    """A padded bucket's packed F_D rows as msq_aids gives them: sparse
+    counts under 4 (width 2), and in 63% of the rows one count of 4..15
+    in block 0, the most frequent degree q-grams (width 4) — 613,313
+    width-2 and 26,992 width-4 blocks over the 42,687 graphs, W = 128
+    words a row."""
+    import numpy as np
+    m = (rng.random((B, U)) < 0.02) * rng.integers(1, 4, (B, U))
+    hot = np.flatnonzero(rng.random(B) < 0.63)
+    m[hot, rng.integers(0, 128, len(hot))] = rng.integers(4, 16, len(hot))
+    return m
+
+
+def every_width_rows(m, rng):
+    """``m`` with rows 0..4 holding one block at each width 2..32, the
+    width-32 block with values >= 2**31 (negative as int32)."""
+    import numpy as np
+    m = m.copy()
+    for r, top in enumerate((3, 15, 255, 65535, 2 ** 32 - 1)):
+        m[r, 128 * r:128 * (r + 1)] = rng.integers(top // 2 + 1, top,
+                                                   128, endpoint=True)
+    return m
+
+
 def phase_kernels(dev):
     import numpy as np
     import torch
     from repro_torch.kernels.assign_lb import kernel as lbk
     from repro_torch.kernels.assign_lb import ref as lbref
+    from repro_torch.kernels.bitunpack import kernel as buk
+    from repro_torch.kernels.bitunpack import ops as buops
+    from repro_torch.kernels.bitunpack import ref as buref
     from repro_torch.kernels.qgram_filter import kernel as qfk
     from repro_torch.kernels.qgram_filter import ops as qfops
     from repro_torch.kernels.qgram_filter import ref as qfref
+    from repro_torch.kernels.rank_popcount import kernel as rpk
+    from repro_torch.kernels.rank_popcount import ref as rpref
 
     rng = np.random.default_rng(0)
     rows = {}
@@ -298,6 +345,141 @@ def phase_kernels(dev):
           f"({rows['assign_lb']['timed_by']}; events {ev2:.4f} ms), "
           f"plain {plain2:.4f} ms, bound {b2_ms:.5f} ms ({b2_by})",
           flush=True)
+
+    # --- kernel 3: the packed slab's row decode into the padded F_D block
+    m = packed_inputs(rng)
+    pk = buops.pack_hybrid_rows(m)
+    (B3, KB), W = pk.sb.shape, pk.words.shape[1]
+    out_cols = qfops.shape_bucket(pk.n_entries, qfops.U_BASE, qfops.U_CAP)
+    bt = [torch.from_numpy(x).to(dev) for x in (pk.sb, pk.widths, pk.words)]
+    check((B3, KB, W, out_cols) == (10240, 15, 128, 2048),
+          f"bit-unpack shapes gave {(B3, KB, W, out_cols)}")
+    ko = buk.bitunpack_call(*bt, out_cols)
+    ro = buref.bitunpack(*bt, out_cols)
+    torch.cuda.synchronize()
+    err3 = int((ko - ro).abs().max())
+    check(torch.equal(ko, ro),
+          f"bitunpack kernel != plain version (max abs err {err3})")
+    check(np.array_equal(ko[:, :pk.n_entries].cpu().numpy(), m),
+          "bitunpack does not give back the packed counts")
+    # every width, 32 included, at the same rows and blocks (W grows)
+    pk_all = buops.pack_hybrid_rows(every_width_rows(m, rng))
+    at = [torch.from_numpy(x).to(dev)
+          for x in (pk_all.sb, pk_all.widths, pk_all.words)]
+    ka, ra = buk.bitunpack_call(*at, out_cols), buref.bitunpack(*at, out_cols)
+    fw, fsb, fwd = (torch.from_numpy(x).to(dev)
+                    for x in buops.flatten_packed_rows(pk_all))
+    kf = buk.bitunpack_call(fsb, fwd, fw)
+    torch.cuda.synchronize()
+    check(set(pk_all.widths.ravel().tolist()) == set(buops.WIDTHS),
+          "the every-width rows miss a width")
+    err3 = max(err3, int((ka.long() - ra.long()).abs().max()))
+    check(torch.equal(ka, ra) and bool((ka[4, 512:640] < 0).all()),
+          f"bitunpack kernel != plain version at every width "
+          f"(max abs err {err3})")
+    check(torch.equal(kf, buref.bitunpack(fsb, fwd, fw))
+          and torch.equal(kf.reshape(B3, -1), ka[:, :KB * 128]),
+          "bitunpack flat form != row form")
+    n_entries = B3 * KB * 128
+    b3_ms, b3_by = bound_ms(nbytes_of(*bt) + B3 * out_cols * 4,
+                            6 * n_entries)
+    ev3 = event_ms(lambda: buk.bitunpack_call(*bt, out_cols))
+    prof3 = profiler_device_ms(lambda: buk.bitunpack_call(*bt, out_cols),
+                               "bitunpack_kernel")
+    plain3 = event_ms(lambda: buref.bitunpack(*bt, out_cols), reps=5,
+                      trials=3)
+    rows["bitunpack"] = dict(
+        name="bitunpack", route="cuda",
+        source="src/repro_torch/csrc/bitunpack.cu",
+        replaces="src/repro/kernels/bitunpack/kernel.py:65",
+        launches=None, max_abs_err=float(err3),
+        ms=prof3 if prof3 is not None else ev3,
+        timed_by="profiler" if prof3 is not None else "events",
+        event_ms=ev3, plain_ms=plain3, bound_ms=b3_ms, bound_by=b3_by,
+        library_ms=None,
+        shape=dict(B=B3, KB=KB, W=W, out_cols=out_cols,
+                   widths={int(w): int((pk.widths == w).sum())
+                           for w in np.unique(pk.widths)}))
+    print(f"[kernels] bitunpack B={B3} KB={KB} W={W} -> ({B3}, {out_cols}) "
+          f"and every width to 32: equal to plain; kernel "
+          f"{rows['bitunpack']['ms']:.4f} ms ({rows['bitunpack']['timed_by']}"
+          f"; events {ev3:.4f} ms), plain {plain3:.4f} ms, bound "
+          f"{b3_ms:.4f} ms ({b3_by})", flush=True)
+
+    # --- kernel 4: the single-query cascade, C_D seeded from aux column 4
+    sc, fd, qfd, vh, qvh, eh, qeh, ds, qsig, aux, cdt = (
+        torch.from_numpy(x).to(dev) for x in filter_inputs(rng, Q=1))
+    aux5 = torch.cat([aux, cdt[0][:, None]], 1)
+    sargs = qfops.pad_single(sc[0], fd, qfd[0], vh, qvh[0], eh, qeh[0], ds,
+                             qsig[0], aux5)
+    B4, U4 = sargs[1].shape
+    check((B4, U4) == (10240, 2048), f"single padding gave {(B4, U4)}")
+    kb4, km4 = qfk.fused_filter_call(*sargs)
+    rb4, rm4 = qfref.fused_filter_bounds(*sargs)
+    torch.cuda.synchronize()
+    err4 = max(int((kb4 - rb4).abs().max()), int((km4 - rm4).abs().max()))
+    check(torch.equal(kb4, rb4) and torch.equal(km4, rm4),
+          f"single-query filter kernel != plain version (max abs err "
+          f"{err4})")
+    check(bool((rm4 > 0).any()) and bool((rm4 == 0).any()),
+          "single-query inputs exercise only one mask value")
+    NV4, NE4, VM4 = sargs[3].shape[1], sargs[5].shape[1], sargs[7].shape[1]
+    b4_ms, b4_by = bound_ms(nbytes_of(*sargs) + 2 * B4 * 4,
+                            B4 * (2 * U4 + 2 * NV4 + 2 * NE4 + 6 * VM4 + 40))
+    ev4 = event_ms(lambda: qfk.fused_filter_call(*sargs))
+    prof4 = profiler_device_ms(lambda: qfk.fused_filter_call(*sargs),
+                               "qgram_filter_kernel<1")
+    plain4 = event_ms(lambda: qfref.fused_filter_bounds(*sargs), reps=5,
+                      trials=3)
+    rows["qgram_filter_single"] = dict(
+        name="qgram_filter_single", route="cuda",
+        source="src/repro_torch/csrc/qgram_filter.cu",
+        replaces="src/repro/kernels/qgram_filter/kernel.py:123",
+        launches=None, max_abs_err=float(err4),
+        ms=prof4 if prof4 is not None else ev4,
+        timed_by="profiler" if prof4 is not None else "events",
+        event_ms=ev4, plain_ms=plain4, bound_ms=b4_ms, bound_by=b4_by,
+        library_ms=None, shape=dict(B=B4, U=U4, NV=NV4, NE=NE4, VM=VM4))
+    print(f"[kernels] qgram_filter_single B={B4} U={U4}: equal to plain; "
+          f"kernel {rows['qgram_filter_single']['ms']:.4f} ms "
+          f"({rows['qgram_filter_single']['timed_by']}; events {ev4:.4f} "
+          f"ms), plain {plain4:.4f} ms, bound {b4_ms:.4f} ms ({b4_by})",
+          flush=True)
+
+    # --- kernel 5: rank-directory block popcounts over a 42 Mbit bitmap
+    n_words = RANK_WORDS
+    wnp = rng.integers(0, 2 ** 32, n_words, dtype=np.uint32)
+    wnp[: n_words // 4] &= rng.integers(0, 2 ** 32, n_words // 4,
+                                        dtype=np.uint32)   # sparser quarter
+    wnp[-256:] = 0xFFFFFFFF
+    words = torch.from_numpy(wnp.view(np.int32)).to(dev)
+    k5 = rpk.block_popcounts(words)
+    r5 = rpref.block_popcounts_ref(words)
+    torch.cuda.synchronize()
+    err5 = int((k5 - r5).abs().max())
+    check(torch.equal(k5, r5) and int(k5[-1]) == 256 * 32,
+          f"block_popcounts kernel != plain version (max abs err {err5})")
+    b5_ms, b5_by = bound_ms(nbytes_of(words, k5), 2 * n_words)
+    ev5 = event_ms(lambda: rpk.block_popcounts(words))
+    prof5 = profiler_device_ms(lambda: rpk.block_popcounts(words),
+                               "block_popcount_kernel")
+    plain5 = event_ms(lambda: rpref.block_popcounts_ref(words), reps=5,
+                      trials=3)
+    rows["rank_popcount"] = dict(
+        name="rank_popcount", route="cuda",
+        source="src/repro_torch/csrc/rank_popcount.cu",
+        replaces="src/repro/kernels/rank_popcount/kernel.py:38",
+        launches=None, max_abs_err=float(err5),
+        ms=prof5 if prof5 is not None else ev5,
+        timed_by="profiler" if prof5 is not None else "events",
+        event_ms=ev5, plain_ms=plain5, bound_ms=b5_ms, bound_by=b5_by,
+        library_ms=None, shape=dict(words=n_words, blocks=n_words // 256))
+    print(f"[kernels] rank_popcount {n_words} words ({n_words * 32} bits, "
+          f"{n_words // 256} blocks): equal to plain; kernel "
+          f"{rows['rank_popcount']['ms']:.4f} ms "
+          f"({rows['rank_popcount']['timed_by']}; events {ev5:.4f} ms), "
+          f"plain {plain5:.4f} ms, bound {b5_ms:.5f} ms ({b5_by})",
+          flush=True)
     return rows
 
 
@@ -321,6 +503,7 @@ def phase_slice(dev, n_queries: int = 64, tau: int = 3):
     from repro_torch.core.search import FlatMSQIndex
     from repro_torch.graphs.generators import aids_like_db
     from repro_torch.kernels.assign_lb.kernel import assign_lb_call
+    from repro_torch.kernels.bitunpack.kernel import bitunpack_call
     from repro_torch.kernels.qgram_filter import ops as qf_ops
     from repro_torch.kernels.qgram_filter.kernel import fused_batched_call
     from repro_torch.serve.graph_engine import GraphQuery, GraphQueryEngine
@@ -440,7 +623,150 @@ def phase_slice(dev, n_queries: int = 64, tau: int = 3):
     print(f"[slice] cuda == torch == numpy: candidates "
           f"{sum(len(c) for c in ref_batch.ids)}, matches {n_match}",
           flush=True)
-    return launches
+
+    # the packed slab: the succinct form stays resident, and every bucket
+    # launch decodes it on the card (bit-unpack, then the filter)
+    pkw = dict(kw, slab="packed")
+    eng = GraphQueryEngine(idx, backend="cuda", device=dev,
+                           slab_layout="packed", assign_lb=cfg.assign_lb,
+                           lb_hungarian=cfg.lb_hungarian)
+    t1 = time.perf_counter()
+    ev_p = idx.filter_eval("cuda", device=dev, **pkw)
+    slab_s = time.perf_counter() - t1
+    pk = ev_p.slab.packed
+    W, KB = pk.words.shape[1], pk.sb.shape[1]
+    up = qf_ops.shape_bucket(ev_p.slab.U, qf_ops.U_BASE, qf_ops.U_CAP)
+    pads = [qf_ops.shape_bucket(n, qf_ops.B_BASE, qf_ops.B_CAP)
+            for n in sizes if n]
+    print(f"[packed] slab build {slab_s:.2f} s; W={W} words, KB={KB} blocks "
+          f"a row; packed rows uploaded per batch on a cold cache: "
+          f"{sum(pads) * (W + 2 * KB) * 4 / 1e6:.1f} MB; decoded on the card"
+          f" per batch: {sum(pads) * up * 4 / 1e6:.0f} MB", flush=True)
+    sizes_bits = {lay: idx.filter_eval("numpy", slab=lay).slab.size_bits()
+                  for lay in ("dense", "packed")}
+    ratio = sizes_bits["dense"]["total"] / sizes_bits["packed"]["total"]
+    print(f"[packed] FilterSlab.size_bits(): dense {sizes_bits['dense']}, "
+          f"packed {sizes_bits['packed']} ({ratio:.2f}x smaller)",
+          flush=True)
+    # the packed path's run: counters read just around it
+    fused_batched_call.launches = 0
+    assign_lb_call.launches = 0
+    bitunpack_call.launches = 0
+    t1 = time.perf_counter()
+    p_res = eng.submit(reqs)
+    wall = time.perf_counter() - t1
+    p_launches = {"bitunpack": bitunpack_call.launches,
+                  "qgram_filter": fused_batched_call.launches,
+                  "assign_lb": assign_lb_call.launches}
+    s = eng.stats.snapshot()
+    print(f"[packed] backend=cuda: submit {wall:.3f} s (filter_s "
+          f"{s['filter_s']:.4f}, lb_s {s['lb_s']:.4f}, verify_s "
+          f"{s['verify_s']:.3f}); verified_pairs {s['verified_pairs']}, "
+          f"matches {sum(len(r.matches) for r in p_res)}; launches "
+          f"{p_launches} for {n_filter} non-empty buckets; device cache "
+          f"{ev_p.device_cache.snapshot()}", flush=True)
+    t2 = time.perf_counter()
+    p_batch, busy = profiled(lambda: idx.batched_candidates(
+        graphs, taus, backend="cuda", device=dev, **pkw))
+    cand_s = time.perf_counter() - t2
+    print(f"[packed] backend=cuda: second candidate pass {cand_s:.4f} s; "
+          f"device busy {busy['kernel_ms']:.3f} ms in kernels "
+          f"({busy['n_kernels']} launches) + {busy['copy_ms']:.3f} ms in "
+          f"copies = {100 * busy['busy_ms'] / 1e3 / cand_s:.2f}% of the pass",
+          flush=True)
+    check(p_launches["bitunpack"] == n_filter
+          and p_launches["qgram_filter"] == n_filter,
+          f"packed launches {p_launches} != one bit-unpack and one filter "
+          f"per non-empty bucket ({n_filter})")
+    check(p_launches["assign_lb"] == n_lb,
+          f"packed assign_lb launches {p_launches['assign_lb']} != buckets "
+          f"with survivors {n_lb}")
+    batches = {"cuda": p_batch}
+    for backend in ("torch", "numpy"):
+        t2 = time.perf_counter()
+        batches[backend] = idx.batched_candidates(
+            graphs, taus, backend=backend,
+            device=None if backend == "numpy" else dev, **pkw)
+        print(f"[packed] backend={backend}: candidate pass "
+              f"{time.perf_counter() - t2:.4f} s", flush=True)
+    for backend, batch in batches.items():
+        check(batch.ids == ref_batch.ids,
+              f"packed {backend}: candidates differ from dense")
+        for a, b in zip(batch.bounds, ref_batch.bounds):
+            check(np.array_equal(a, b),
+                  f"packed {backend}: filter bounds differ from dense")
+        for a, b in zip(batch.lbs, ref_batch.lbs):
+            check(np.array_equal(a, b),
+                  f"packed {backend}: LBs differ from dense")
+    for r, rr in zip(p_res, ref_res):
+        check(r.candidates == rr.candidates and r.matches == rr.matches,
+              "packed cuda: result candidates or matches differ from dense")
+    print(f"[packed] cuda, torch, numpy on packed == dense: candidates, "
+          f"bounds, LBs, matches ({n_match} matches)", flush=True)
+    return {name: {"dense": launches.get(name), "packed": p_launches[name]}
+            for name in p_launches}, idx, graphs[0], tau
+
+
+def phase_entry_points(dev, idx, h, tau):
+    """Kernels 4 and 5 through their public entry points, each a path of
+    its own with its counter reset just before and read just after: one
+    query's single-query cascade over the whole msq_aids slab, held
+    against the host scalar oracle, and a rank dictionary over a
+    41,996,333-bit bitmap (the msq_aids q-gram tree's S_b size), held
+    against the plain version and a numpy prefix count."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.qgram_filter import ops as qf_ops
+    from repro_torch.kernels.qgram_filter.kernel import fused_filter_call
+    from repro_torch.kernels.rank_popcount import ops as rp_ops
+    from repro_torch.kernels.rank_popcount import ref as rp_ref
+    from repro_torch.kernels.rank_popcount.kernel import block_popcounts
+
+    ev = idx.filter_eval("numpy")
+    sl, p = ev.slab, idx.partition
+    q = ev.query_arrays(h, tau)
+    aux = np.stack([sl.nv, sl.ne, sl.region_i, sl.region_j,
+                    np.zeros_like(sl.nv)], 1)
+    t = [torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+         for x in ([q.nv, q.ne, tau, p.x0, p.y0, p.l], sl.fd, q.fd,
+                   sl.vhist, q.vhist, sl.ehist, q.ehist, sl.degseq, q.sigma,
+                   aux)]
+    fused_filter_call.launches = 0
+    t0 = time.perf_counter()
+    _, mask = qf_ops.fused_filter_bounds(*t)
+    got = np.flatnonzero(mask.cpu().numpy()).tolist()
+    single_s = time.perf_counter() - t0
+    n4 = fused_filter_call.launches
+    want = idx.candidates(h, tau)
+    check(n4 == 1, f"single-query entry point launched {n4} kernels")
+    check(got == want and len(want) > 0,
+          f"single-query candidates {len(got)} != host oracle's {len(want)}")
+    print(f"[entry] fused_filter_bounds: one query over all {sl.B} graphs "
+          f"in {single_s:.4f} s (upload included), {len(got)} candidates "
+          f"== FlatMSQIndex.candidates; launches {n4}", flush=True)
+
+    rng = np.random.default_rng(11)
+    n_bits = RANK_BITS
+    bits = (rng.random(n_bits) < 0.3).astype(np.uint8)
+    qidx = np.concatenate([rng.integers(0, n_bits + 1, 4096), [0, n_bits]])
+    block_popcounts.launches = 0
+    t0 = time.perf_counter()
+    words, cum = rp_ops.build_rank_dictionary(bits, dev)
+    ranks = rp_ops.rank1_query(words, cum, torch.from_numpy(qidx).to(dev))
+    torch.cuda.synchronize()
+    rank_s = time.perf_counter() - t0
+    n5 = block_popcounts.launches
+    check(n5 == 1, f"rank dictionary entry point launched {n5} kernels")
+    prefix = np.concatenate([[0], np.cumsum(bits, dtype=np.int64)])
+    check(np.array_equal(ranks.cpu().numpy(), prefix[qidx]),
+          "rank1_query != numpy prefix count")
+    check(torch.equal(ranks, rp_ref.rank1_query_ref(
+        words, torch.from_numpy(qidx).to(dev))), "rank1_query != plain")
+    print(f"[entry] build_rank_dictionary + rank1_query: {n_bits} bits, "
+          f"{len(words) // 256} blocks, {len(qidx)} queries in {rank_s:.4f}"
+          f" s (pack and upload included) == numpy prefix count; launches "
+          f"{n5}", flush=True)
+    return {"qgram_filter_single": n4, "rank_popcount": n5}
 
 
 def main(argv=None) -> int:
@@ -475,8 +801,14 @@ def main(argv=None) -> int:
 
     rows = phase_kernels(dev)
     if args.phase == "all":
-        launches = phase_slice(dev)
-        for name, n in launches.items():
+        by_path, idx, h, tau = phase_slice(dev)
+        for name, n in by_path.items():
+            # the dense path's count where it runs the kernel, else the
+            # packed path's (the bit-unpack kernel runs on packed only)
+            rows[name]["launches"] = int(n["dense"] if n["dense"] is not None
+                                         else n["packed"])
+            rows[name]["launches_by_path"] = n
+        for name, n in phase_entry_points(dev, idx, h, tau).items():
             rows[name]["launches"] = int(n)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -14,8 +14,9 @@ class MSQConfig:
     seed: int = 0
     # serving FilterSlab layout (DESIGN.md §11): 'dense' keeps the full
     # (B, U) F_D matrix resident, 'hot' keeps only a frequency-ordered
-    # prefix of its columns dense (CSR tail corrected per batch).
-    # Candidate sets are bit-identical across layouts.
+    # prefix of its columns dense (CSR tail corrected per batch),
+    # 'packed' keeps the hybrid bit-packed rows and decodes on device.
+    # Candidate sets are bit-identical across all three.
     slab_layout: str = "dense"
     # stage-1.5 batched assignment lower bound (DESIGN.md §16): provable
     # (LB <= GED), so match sets are bit-identical with it on or off — it

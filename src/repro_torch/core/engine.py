@@ -12,9 +12,11 @@ Stage 1 — **bucket** (``bucket_queries``): group requests by their reduced
 Stage 2 — **gather**: the bucket's ``FilterSlab`` rows are gathered once,
   padded to the filter kernel's shape bucket, uploaded to the backend's
   device and kept there in the ``DeviceSlabCache`` (DESIGN.md §13).  The
-  slab's F_D carrier is ``dense`` or ``hot`` (hot prefix on the device,
+  slab's F_D carrier is ``dense``, ``hot`` (hot prefix on the device,
   the CSR tail's C_D correction computed on the host and fed to the
-  kernel as its C_D seed ``cdt``, DESIGN.md §11).
+  kernel as its C_D seed ``cdt``) or ``packed`` (the bucket's bit-packed
+  rows stay on the device in that form and are decoded there on every
+  launch, the bit-unpack kernel on ``cuda``; DESIGN.md §11).
 
 Stage 3 — **filter** (``BatchedFilterEval``): the full leaf-level filter
   cascade for the whole bucket in one (Q, N) pass.  Backends: ``cuda``
@@ -54,6 +56,9 @@ from repro_torch.graphs.graph import Graph, GraphDB
 from repro_torch.kernels.assign_lb import kernel as lb_kernel
 from repro_torch.kernels.assign_lb import ops as lb_ops
 from repro_torch.kernels.assign_lb import ref as lb_ref
+from repro_torch.kernels.bitunpack import kernel as bu_kernel
+from repro_torch.kernels.bitunpack import ops as bu_ops
+from repro_torch.kernels.bitunpack import ref as bu_ref
 from repro_torch.kernels.qgram_filter import kernel as qf_kernel
 from repro_torch.kernels.qgram_filter import ops as qf_ops
 from repro_torch.kernels.qgram_filter import ref as qf_ref
@@ -303,13 +308,28 @@ class BatchedFilterEval:
                        qs: Sequence[QueryArrays]) -> np.ndarray:
         """One query-batched pass per bucket (DESIGN.md §13): the padded
         query block rides a leading Q axis and every db-side operand comes
-        from the device-resident cache.  ``cuda`` launches the kernel,
-        ``torch`` runs its plain version on the same padded operands."""
+        from the device-resident cache.  ``cuda`` launches the kernels,
+        ``torch`` runs their plain versions on the same padded operands.
+        On the packed slab the cache holds the bucket's packed rows, and
+        every pass decodes them into the filter's zero-padded F_D block
+        (the bit-unpack kernel, then the filter kernel)."""
         Q, N = len(qs), len(idx)
         n_pad = qf_ops.shape_bucket(max(N, 1), qf_ops.B_BASE, qf_ops.B_CAP)
         key, sub = self._gather_cached(idx, n_pad)
-        fd = self.device_cache.get_or_build(
-            key, "fd", lambda: qf_ops.upload_fd(sub.fd, self.device))
+        cuda = self.backend == "cuda"
+        if self.slab_layout == "packed":
+            words, sb, widths = self.device_cache.get_or_build(
+                key, "packed", lambda: tuple(
+                    self._to_device(x) for x in
+                    (sub.packed.words, sub.packed.sb, sub.packed.widths)))
+            up = qf_ops.shape_bucket(sub.U, qf_ops.U_BASE, qf_ops.U_CAP)
+            with device_annotation("msq.bitunpack"):
+                fd = bu_ops.unpack_rows_device(
+                    words, sb, widths, up,
+                    fn=bu_kernel.bitunpack_call if cuda else bu_ref.bitunpack)
+        else:
+            fd = self.device_cache.get_or_build(
+                key, "fd", lambda: qf_ops.upload_fd(sub.fd, self.device))
 
         def _upload_small():
             aux = np.stack([sub.nv, sub.ne, sub.region_i, sub.region_j],
@@ -329,7 +349,7 @@ class BatchedFilterEval:
             qb = qb._replace(fd=qb.fd[:, :sub.hot_d])
         p = self.partition
         sc = qf_ops.make_scalars_batch(qs, p.x0, p.y0, p.l)
-        fn = (qf_kernel.fused_batched_call if self.backend == "cuda"
+        fn = (qf_kernel.fused_batched_call if cuda
               else qf_ref.fused_batched_bounds)
         with device_annotation("msq.qgram_filter"):
             b, _ = qf_ops.fused_filter_bounds_batched(

@@ -76,9 +76,10 @@ class FlatMSQIndex:
                     lb_hungarian: int = 0) -> BatchedFilterEval:
         """The batched (Q, N) filter evaluator over this index's arrays
         (built lazily once per backend x device x FilterSlab layout, then
-        reused across batches — DESIGN.md §11).  ``backend='cuda'`` raises
-        without a CUDA device; the CPU takes ``backend='torch',
-        device='cpu'`` or ``backend='numpy'``."""
+        reused across batches — DESIGN.md §11).  ``slab`` is 'dense',
+        'hot' or 'packed'.  ``backend='cuda'`` raises without a CUDA
+        device; the CPU takes ``backend='torch', device='cpu'`` or
+        ``backend='numpy'``."""
         if slab == "hot" and hot_d is None:
             # resolve hot_mass to a width up front so a mass-tuned and an
             # explicit hot_d evaluator of the same H share a cache entry;

@@ -1,9 +1,9 @@
 """FilterSlab: the serving representation a bucket's filter pass runs
 against (DESIGN.md §11).
 
-Two interchangeable F_D layouts behind one gather/c_d interface, so every
-backend (numpy / torch / cuda) sees the same slab protocol and produces
-bit-identical candidate sets:
+Three interchangeable F_D layouts behind one gather/c_d interface, so
+every backend (numpy / torch / cuda) sees the same slab protocol and
+produces bit-identical candidate sets:
 
 * ``dense``  — (B, U) int32 F_D; fastest on narrow vocabularies.
 * ``hot``    — dense hot prefix (B, H) over the frequency-ordered
@@ -12,12 +12,17 @@ bit-identical candidate sets:
   C_D *before* thresholding (it seeds the filter kernel's C_D through
   ``cdt``), which keeps the bound admissible (DESIGN.md §3).
 
-The ``packed`` layout (hybrid bit-packed rows decoded on device) needs
-the bit-unpack kernel, which this package does not have yet; asking for
-it raises ``NotImplementedError``.
+* ``packed`` — the hybrid bit-packed rows of ``kernels/bitunpack``
+  (``PackedRows``): per-128-entry blocks at the narrowest power-of-two
+  width.  The resident slab is the succinct form; the filter pass
+  decodes each bucket's rows on the device (the bit-unpack kernel on
+  ``cuda``, its plain version on ``torch``), and the host path decodes
+  once per gathered sub-slab (``fd_dense_np``).
 
 The non-F_D arrays (sizes, degree sequences, label histograms, region
-coordinates, branch features) are identical across layouts.
+coordinates, branch features) are identical across layouts; only the F_D
+carrier differs, and ``size_bits()`` accounts for exactly that
+difference.
 """
 from __future__ import annotations
 
@@ -28,8 +33,12 @@ import numpy as np
 
 from repro_torch.core.arrays import DBArrays
 from repro_torch.core.qgrams import EncodedDB
+from repro_torch.kernels.bitunpack.ops import (WIDTHS, PackedRows,
+                                               pack_hybrid_rows,
+                                               packed_rows_size_bits,
+                                               unpack_rows_np)
 
-LAYOUTS = ("dense", "hot")
+LAYOUTS = ("dense", "hot", "packed")
 DEFAULT_HOT_D = 128
 _IMPOSSIBLE = -(2 ** 20)
 
@@ -101,8 +110,9 @@ class FilterSlab:
     """One bucket-servable database slab in a chosen F_D layout.
 
     Always-dense per-graph arrays (the filter cascade's small operands)
-    plus the F_D carrier: ``fd`` (dense (B, U) or hot (B, H)) and, for
-    ``hot``, the tail CSR (``t_off``/``t_ids``/``t_cnt``, ids >= hot_d).
+    plus exactly one F_D carrier: ``fd`` (dense (B, U) or hot (B, H)),
+    the ``hot`` tail CSR (``t_off``/``t_ids``/``t_cnt``, ids >= hot_d),
+    or ``packed`` (``PackedRows``).
     """
 
     layout: str
@@ -114,28 +124,25 @@ class FilterSlab:
     region_i: np.ndarray
     region_j: np.ndarray
     U: int                       # full degree-vocabulary width
-    hot_d: int                   # == U for dense
+    hot_d: int                   # == U for dense/packed
     vmax: int
     fd: Optional[np.ndarray] = None
     t_off: Optional[np.ndarray] = None
     t_ids: Optional[np.ndarray] = None
     t_cnt: Optional[np.ndarray] = None
+    packed: Optional[PackedRows] = None
     # per-vertex branch structures for the stage-1.5 assignment lower
     # bound (DESIGN.md §16) — layout-independent, like nv/degseq
     bvlab: Optional[np.ndarray] = None           # (B, vmax), pad -1
     bdeg: Optional[np.ndarray] = None            # (B, vmax), pad 0
     behist: Optional[np.ndarray] = None          # (B, vmax, NE), pad 0
+    _fd_cache: Optional[np.ndarray] = None       # lazy packed host decode
     _t_rows: Optional[np.ndarray] = None         # lazy tail entry -> row map
 
     # ---- construction -----------------------------------------------------
     @classmethod
     def build(cls, db, enc: EncodedDB, partition, *, layout: str = "dense",
               hot_d: Optional[int] = None) -> "FilterSlab":
-        if layout == "packed":
-            raise NotImplementedError(
-                "the packed slab needs the bit-unpack kernel "
-                "(kernels/bitunpack), which is not ported yet; use the "
-                "dense or hot slab")
         if layout not in LAYOUTS:
             raise ValueError(f"unknown slab layout {layout!r} "
                              f"(one of {LAYOUTS})")
@@ -158,6 +165,9 @@ class FilterSlab:
         if layout == "dense":
             fd, _ = enc.dense_hot(U)
             slab.fd = fd.astype(np.int32)
+        elif layout == "packed":
+            fd, _ = enc.dense_hot(U)
+            slab.packed = pack_hybrid_rows(fd)
         else:  # hot
             # hot without a width takes the fixed default: it must not
             # silently degenerate to the dense slab
@@ -196,15 +206,16 @@ class FilterSlab:
             return sub
 
         sub = replace(
-            self, _t_rows=None,
+            self, _fd_cache=None, _t_rows=None,
             nv=take(self.nv), ne=take(self.ne), degseq=take(self.degseq),
             vhist=take(self.vhist), ehist=take(self.ehist),
             region_i=take(self.region_i, _IMPOSSIBLE),
             region_j=take(self.region_j, _IMPOSSIBLE),
             bvlab=None if self.bvlab is None else take(self.bvlab, -1),
             bdeg=None if self.bdeg is None else take(self.bdeg),
-            behist=None if self.behist is None else take(self.behist),
-            fd=take(self.fd))
+            behist=None if self.behist is None else take(self.behist))
+        if self.fd is not None:
+            sub.fd = take(self.fd)
         if self.layout == "hot":
             t_off, t_ids, t_cnt = _ragged_take(self.t_off, self.t_ids,
                                                self.t_cnt, idx)
@@ -212,6 +223,22 @@ class FilterSlab:
                 t_off = np.concatenate(
                     [t_off, np.full(pad, t_off[-1], np.int64)])
             sub.t_off, sub.t_ids, sub.t_cnt = t_off, t_ids, t_cnt
+        if self.layout == "packed":
+            pk = self.packed
+            words, sb, widths = pk.words[idx], pk.sb[idx], pk.widths[idx]
+            if pad:
+                KB = sb.shape[1]
+                # a pad row decodes to zeros: zero words at the narrowest
+                # width (4*w words per block, so offsets fit any real W)
+                w0 = WIDTHS[0]
+                zero_sb = (np.arange(KB, dtype=np.int32) * 4 * w0)[None, :]
+                words = np.vstack(
+                    [words, np.zeros((pad, words.shape[1]), words.dtype)])
+                sb = np.vstack([sb, np.repeat(zero_sb, pad, axis=0)])
+                widths = np.vstack(
+                    [widths, np.full((pad, KB), w0, widths.dtype)])
+            sub.packed = PackedRows(words=words, sb=sb, widths=widths,
+                                    n_entries=pk.n_entries)
         return sub
 
     def in_rect(self, rect: Tuple[int, int, int, int]) -> np.ndarray:
@@ -221,13 +248,27 @@ class FilterSlab:
         return np.flatnonzero(m)
 
     def base_arrays(self) -> DBArrays:
-        """The DBArrays a filter pass consumes; ``fd`` is the layout's
-        dense carrier (full matrix for dense, hot prefix for hot)."""
+        """The DBArrays a filter pass consumes.  ``fd`` is the layout's
+        dense carrier: full matrix (dense), hot prefix (hot), or a (B, 1)
+        placeholder (packed — the pass decodes ``self.packed`` itself and
+        supplies C_D explicitly)."""
+        fd = self.fd
+        if fd is None:
+            fd = np.zeros((self.B, 1), np.int32)
         return DBArrays(nv=self.nv, ne=self.ne, degseq=self.degseq,
-                        vhist=self.vhist, ehist=self.ehist, fd=self.fd,
+                        vhist=self.vhist, ehist=self.ehist, fd=fd,
                         region_i=self.region_i, region_j=self.region_j)
 
     # ---- host C_D (numpy backend + hot tail seed) -------------------------
+    def fd_dense_np(self) -> np.ndarray:
+        """Full-width dense F_D (decodes packed once per gathered slab;
+        hot keeps no dense tail on purpose — ``cd_one`` adds it)."""
+        if self.layout == "packed":
+            if self._fd_cache is None:
+                self._fd_cache = unpack_rows_np(self.packed)
+            return self._fd_cache
+        return self.fd
+
     def cd_one(self, qfd: np.ndarray) -> np.ndarray:
         """(B,) exact C_D against one full-width dense query F_D.
 
@@ -240,8 +281,9 @@ class FilterSlab:
             hot = np.minimum(self.fd[:, ids].astype(np.int64),
                              qfd[ids][None, :]).sum(axis=1)
             return hot + self.tail_minsum_one(qfd)
-        ids = np.flatnonzero(qfd[:self.fd.shape[1]] > 0)
-        return np.minimum(self.fd[:, ids].astype(np.int64),
+        fd = self.fd_dense_np()
+        ids = np.flatnonzero(qfd[:fd.shape[1]] > 0)
+        return np.minimum(fd[:, ids].astype(np.int64),
                           qfd[ids][None, :]).sum(axis=1)
 
     def tail_minsum_one(self, qfd: np.ndarray) -> np.ndarray:
@@ -268,6 +310,10 @@ class FilterSlab:
     def size_bits(self) -> Dict[str, int]:
         """Bits of the layout-specific F_D carrier (the slab parts shared
         by every layout are excluded — they don't differentiate)."""
+        if self.layout == "packed":
+            s = packed_rows_size_bits(self.packed)
+            return {k: s[k] for k in ("words", "sb", "widths",
+                                      "ragged_payload", "total")}
         fd_bits = self.fd.size * 32
         if self.layout == "dense":
             return {"fd": fd_bits, "total": fd_bits}
@@ -275,3 +321,6 @@ class FilterSlab:
                      + len(self.t_off) * 64)
         return {"fd": fd_bits, "tail": tail_bits,
                 "total": fd_bits + tail_bits}
+
+    def bits_per_graph(self) -> float:
+        return self.size_bits()["total"] / max(self.B, 1)

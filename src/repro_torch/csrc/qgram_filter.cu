@@ -1,9 +1,14 @@
-// Fused q-gram filter cascade, query-batched (DESIGN.md §13).
+// Fused q-gram filter cascade, query-batched and single-query
+// (DESIGN.md §13).
 //
-// Replaces the TPU kernel src/repro/kernels/qgram_filter/kernel.py,
-// function _batched_kernel (launched by fused_batched_call).  For every
-// (query q, graph b) pair of a bucket it computes
-//   C_D   = cdt[q, b] + sum_u min(F_D[b, u], qfd[q, u])
+// Replaces two TPU kernels of src/repro/kernels/qgram_filter/kernel.py:
+// _batched_kernel (launched by fused_batched_call; entry point
+// repro_qgram_filter, QC = 8 queries a register chunk, aux (B, 4), C_D
+// seed from cdt) and _kernel (launched by fused_filter_call; entry point
+// repro_qgram_filter_single, QC = 1, aux (B, 5) whose column 4 is the
+// C_D seed).  Both are one template.  For every (query q, graph b) pair
+// it computes
+//   C_D   = seed[q, b] + sum_u min(F_D[b, u], qfd[q, u])
 //   C_Lv  = sum min(vhist[b], qvh[q]),  C_Le = sum min(ehist[b], qeh[q])
 //   the number-count, label-q-gram, degree-q-gram and Lemma-5
 //   degree-sequence bounds, bound = their max, and
@@ -26,8 +31,11 @@
 // histograms, degree sequences) are spread over the same lanes, the 6*QC
 // partial sums are reduced with warp shuffles, and lane j writes the
 // epilogue of query j.  Query blocks wider than QC re-sweep the row once
-// per chunk.  Not done yet: F_D tiles staged in shared memory, a
-// query-sparse C_D, one launch for all buckets.
+// per chunk.  The single-query instance has QC = 1: each F_D vector meets
+// one query vector, so it does an eighth of the batched instance's work
+// per byte instead of padding one query to a chunk of 8.  Not done yet:
+// F_D tiles staged in shared memory, a query-sparse C_D, one launch for
+// all buckets.
 //
 // Region bounds floor-divide numerators that go negative; C's `/`
 // truncates toward zero, so every `//` of the reference is floor_div.
@@ -36,7 +44,6 @@
 
 namespace {
 
-constexpr int QC = 8;          // queries per register chunk
 constexpr int WARPS = 8;       // warps (= graph rows) per block
 constexpr int N_SCALARS = 6;   // q_nv, q_ne, tau, x0, y0, l
 
@@ -56,6 +63,9 @@ __device__ __forceinline__ int min4(int4 a, int4 b) {
   return min(a.x, b.x) + min(a.y, b.y) + min(a.z, b.z) + min(a.w, b.w);
 }
 
+// QC: queries per register chunk; AUX_COLS: 4 (nv ne ri rj) or 5 (and
+// the C_D seed in column 4)
+template <int QC, int AUX_COLS>
 __global__ void __launch_bounds__(WARPS * 32)
 qgram_filter_kernel(const int* __restrict__ scalars,  // (Q, 6)
                     const int* __restrict__ fd,       // (B, U)
@@ -66,7 +76,7 @@ qgram_filter_kernel(const int* __restrict__ scalars,  // (Q, 6)
                     const int* __restrict__ qeh,      // (Q, NE)
                     const int* __restrict__ degseq,   // (B, VM)
                     const int* __restrict__ qsig,     // (Q, VM)
-                    const int* __restrict__ aux,      // (B, 4) nv ne ri rj
+                    const int* __restrict__ aux,      // (B, AUX_COLS)
                     const int* __restrict__ cdt,      // (Q, B) or null
                     int* __restrict__ bounds,         // (Q, B) out
                     int* __restrict__ mask,           // (Q, B) out
@@ -80,10 +90,12 @@ qgram_filter_kernel(const int* __restrict__ scalars,  // (Q, 6)
   const int* vrow = vhist + (size_t)b * NV;
   const int* erow = ehist + (size_t)b * NE;
   const int* drow = degseq + (size_t)b * VM;
-  const int nv = aux[4 * b + 0];
-  const int ne = aux[4 * b + 1];
-  const int ri = aux[4 * b + 2];
-  const int rj = aux[4 * b + 3];
+  const int nv = aux[AUX_COLS * b + 0];
+  const int ne = aux[AUX_COLS * b + 1];
+  const int ri = aux[AUX_COLS * b + 2];
+  const int rj = aux[AUX_COLS * b + 3];
+  int seed = 0;
+  if constexpr (AUX_COLS == 5) seed = aux[AUX_COLS * b + 4];
 
   for (int q0 = 0; q0 < Q; q0 += QC) {
     int cd[QC], ov[QC], oe[QC], s1[QC], s2[QC], md[QC];
@@ -133,7 +145,8 @@ qgram_filter_kernel(const int* __restrict__ scalars,  // (Q, 6)
       const int* sc = scalars + q * N_SCALARS;
       const int q_nv = sc[0], q_ne = sc[1], tau = sc[2];
       const int x0 = sc[3], y0 = sc[4], l = sc[5];
-      const int c_d = cd[j] + (cdt != nullptr ? cdt[(size_t)q * B + b] : 0);
+      const int c_d =
+          cd[j] + seed + (cdt != nullptr ? cdt[(size_t)q * B + b] : 0);
       const int max_nv = max(nv, q_nv);
       const int max_ne = max(ne, q_ne);
       const int number_count = abs(nv - q_nv) + abs(ne - q_ne);
@@ -160,7 +173,7 @@ qgram_filter_kernel(const int* __restrict__ scalars,  // (Q, 6)
 
 }  // namespace
 
-// Q must be a multiple of QC and U of 4, with fd / qfd 16-byte aligned;
+// Q must be a multiple of 8 and U of 4, with fd / qfd 16-byte aligned;
 // the Python wrapper checks all of it before the call.
 extern "C" int repro_qgram_filter(const void* scalars, const void* fd,
                                   const void* qfd, const void* vhist,
@@ -171,8 +184,8 @@ extern "C" int repro_qgram_filter(const void* scalars, const void* fd,
                                   int Q, int B, int U, int NV, int NE, int VM,
                                   void* stream) {
   const dim3 grid((B + WARPS - 1) / WARPS);
-  qgram_filter_kernel<<<grid, WARPS * 32, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  qgram_filter_kernel<8, 4><<<grid, WARPS * 32, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(scalars), static_cast<const int*>(fd),
       static_cast<const int*>(qfd), static_cast<const int*>(vhist),
       static_cast<const int*>(qvh), static_cast<const int*>(ehist),
@@ -180,5 +193,26 @@ extern "C" int repro_qgram_filter(const void* scalars, const void* fd,
       static_cast<const int*>(qsig), static_cast<const int*>(aux),
       static_cast<const int*>(cdt), static_cast<int*>(bounds),
       static_cast<int*>(mask), Q, B, U, NV, NE, VM);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One query: scalars (6,), qfd (U,), qvh (NV,), qeh (NE,), qsig (VM,),
+// aux (B, 5) with the C_D seed in column 4; outputs (B,).  U must be a
+// multiple of 4, with fd / qfd 16-byte aligned (checked by the wrapper).
+extern "C" int repro_qgram_filter_single(
+    const void* scalars, const void* fd, const void* qfd, const void* vhist,
+    const void* qvh, const void* ehist, const void* qeh, const void* degseq,
+    const void* qsig, const void* aux, void* bounds, void* mask, int B,
+    int U, int NV, int NE, int VM, void* stream) {
+  const dim3 grid((B + WARPS - 1) / WARPS);
+  qgram_filter_kernel<1, 5><<<grid, WARPS * 32, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(scalars), static_cast<const int*>(fd),
+      static_cast<const int*>(qfd), static_cast<const int*>(vhist),
+      static_cast<const int*>(qvh), static_cast<const int*>(ehist),
+      static_cast<const int*>(qeh), static_cast<const int*>(degseq),
+      static_cast<const int*>(qsig), static_cast<const int*>(aux), nullptr,
+      static_cast<int*>(bounds), static_cast<int*>(mask), 1, B, U, NV, NE,
+      VM);
   return static_cast<int>(cudaGetLastError());
 }

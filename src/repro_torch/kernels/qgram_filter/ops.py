@@ -72,6 +72,40 @@ def pad_batched(scalars, fd, qfd, vhist, qvh, ehist, qeh, degseq, qsig,
             None if cdt is None else pad_to(pad_to(cdt, qp, 0), bp, 1))
 
 
+def pad_single(scalars, fd, qfd, vhist, qvh, ehist, qeh, degseq, qsig,
+               aux) -> Tuple[torch.Tensor, ...]:
+    """One query's operands padded to the ladders: B with impossible
+    graphs (every aux column at -2**20, so the bound is huge and the
+    region test fails), U with zero counts; the query side only in U."""
+    B, U = fd.shape
+    bp = shape_bucket(B, B_BASE, B_CAP)
+    up = shape_bucket(U, U_BASE, U_CAP)
+    return (scalars.contiguous(), pad_to(pad_to(fd, bp, 0), up, 1),
+            pad_to(qfd, up, 0), pad_to(vhist, bp, 0), qvh,
+            pad_to(ehist, bp, 0), qeh, pad_to(degseq, bp, 0), qsig,
+            pad_to(aux, bp, 0, value=IMPOSSIBLE))
+
+
+def fused_filter_bounds(scalars, fd, qfd, vhist, qvh, ehist, qeh, degseq,
+                        qsig, aux, *, fn: Optional[Callable] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(bounds, mask), both (B,), for a database shard vs one query.
+
+    ``aux`` is (B, 5): nv, ne, region_i, region_j and the C_D seed (the
+    hot prefix's cold-vocabulary tail; zeros for the full vocabulary).
+    ``fn`` is what runs on the operands padded by ``pad_single``: the
+    kernel wrapper ``kernel.fused_filter_call`` by default,
+    ``ref.fused_filter_bounds`` for the plain version.
+    """
+    if fn is None:
+        from repro_torch.kernels.qgram_filter.kernel import fused_filter_call
+        fn = fused_filter_call
+    bounds, mask = fn(*pad_single(scalars, fd, qfd, vhist, qvh, ehist, qeh,
+                                  degseq, qsig, aux))
+    B = fd.shape[0]
+    return bounds[:B], mask[:B]
+
+
 def fused_filter_bounds_batched(scalars, fd, qfd, vhist, qvh, ehist, qeh,
                                 degseq, qsig, aux, cdt=None, *,
                                 fn: Optional[Callable] = None

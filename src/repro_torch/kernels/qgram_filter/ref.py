@@ -1,7 +1,8 @@
 """Plain PyTorch version of the fused filter cascade — the oracle the CUDA
 kernel is held against, and the body of the ``torch`` backend.
 
-Same (Q, B) contract as ``kernel.fused_batched_call``; runs on any
+Same (Q, B) contract as ``kernel.fused_batched_call``, and the (B,)
+single-query contract of ``kernel.fused_filter_call``; runs on any
 device.  Every ``//`` of the cascade is a floor division
 (``rounding_mode="floor"``): the region numerators go negative.
 """
@@ -59,3 +60,14 @@ def fused_batched_bounds(scalars, fd, qfd, vhist, qvh, ehist, qeh, degseq,
     j2 = _fdiv(q_ne + tau - q_nv - dd, l)
     in_region = (ri >= i1) & (ri <= i2) & (rj >= j1) & (rj <= j2)
     return bound.int(), (in_region & (bound <= tau)).int()
+
+
+def fused_filter_bounds(scalars, fd, qfd, vhist, qvh, ehist, qeh, degseq,
+                        qsig, aux):
+    """(bounds, mask), both (B,) int32, for one query: scalars (6,), qfd
+    (U,), qvh (NV,), qeh (NE,), qsig (VM,), aux (B, 5) whose column 4
+    seeds C_D (the hot prefix's cold-vocabulary tail)."""
+    b, m = fused_batched_bounds(scalars[None], fd, qfd[None], vhist,
+                                qvh[None], ehist, qeh[None], degseq,
+                                qsig[None], aux, aux[:, 4][None])
+    return b[0], m[0]

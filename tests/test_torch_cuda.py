@@ -18,9 +18,15 @@ import torch
 from repro_torch.kernels.assign_lb import kernel as lbk
 from repro_torch.kernels.assign_lb import ops as lbops
 from repro_torch.kernels.assign_lb import ref as lbref
+from repro_torch.kernels.bitunpack import kernel as buk
+from repro_torch.kernels.bitunpack import ops as buops
+from repro_torch.kernels.bitunpack import ref as buref
 from repro_torch.kernels.qgram_filter import kernel as qfk
 from repro_torch.kernels.qgram_filter import ops as qfops
 from repro_torch.kernels.qgram_filter import ref as qfref
+from repro_torch.kernels.rank_popcount import kernel as rpk
+from repro_torch.kernels.rank_popcount import ops as rpops
+from repro_torch.kernels.rank_popcount import ref as rpref
 
 pytestmark = pytest.mark.gpu
 
@@ -180,3 +186,110 @@ def test_cuda_backend_equals_numpy_backend(cuda):
         assert cb.ids == nb.ids
         for x, y in zip(cb.bounds + cb.lbs, nb.bounds + nb.lbs):
             assert np.array_equal(x, y)
+
+
+def _packed_case(rng, B, U):
+    """Row-packed counts that hit every width, 32 with values >= 2**31."""
+    m = (rng.random((B, U)) < 0.05) * rng.integers(1, 4, (B, U))
+    tops = [3, 15, 255, 65535, 2 ** 32 - 1]
+    for r in range(min(B, len(tops))):
+        m[r, :min(U, 128)] = rng.integers(0, tops[r], min(U, 128),
+                                          endpoint=True)
+        m[r, 0] = tops[r]
+    return buops.pack_hybrid_rows(m), m
+
+
+@pytest.mark.parametrize("B,U,out_cols", [
+    (1, 5, 128), (7, 300, 512), (100, 1851, 2048), (33, 129, 256),
+])
+def test_bitunpack_kernel_equals_plain_version(cuda, B, U, out_cols):
+    rng = np.random.default_rng(B + U)
+    pk, m = _packed_case(rng, B, U)
+    t = [torch.from_numpy(x).to(cuda) for x in (pk.sb, pk.widths, pk.words)]
+    before = buk.bitunpack_call.launches
+    got = buk.bitunpack_call(*t, out_cols)
+    want = buref.bitunpack(*t, out_cols)
+    words, sb, widths = buops.flatten_packed_rows(pk)
+    f = [torch.from_numpy(x).to(cuda) for x in (sb, widths, words)]
+    flat = buk.bitunpack_call(*f)
+    torch.cuda.synchronize()
+    assert buk.bitunpack_call.launches == before + 2
+    assert torch.equal(got, want) and got.shape == (B, out_cols)
+    assert torch.equal(flat, buref.bitunpack(*f))
+    assert torch.equal(flat.reshape(B, -1), got[:, :flat.numel() // B])
+    assert np.array_equal(got[:, :U].cpu().numpy(),
+                          m.astype(np.uint32).view(np.int32))
+
+
+def test_single_query_filter_kernel_equals_plain_version(cuda):
+    rng = np.random.default_rng(8)
+    case = _filter_case(rng, 1, 3000, 1851)
+    sc, fd, qfd, vh, qvh, eh, qeh, ds, qsig, aux, cdt = case
+    aux5 = torch.cat([aux, cdt[0][:, None]], 1)
+    args = [x.to(cuda) for x in (sc[0], fd, qfd[0], vh, qvh[0], eh, qeh[0],
+                                 ds, qsig[0], aux5)]
+    before = qfk.fused_filter_call.launches
+    kb, km = qfops.fused_filter_bounds(*args)
+    rb, rm = qfops.fused_filter_bounds(*args, fn=qfref.fused_filter_bounds)
+    torch.cuda.synchronize()
+    assert qfk.fused_filter_call.launches == before + 1
+    assert torch.equal(kb, rb) and torch.equal(km, rm)
+    assert 0 < int(km.sum()) < len(km)
+    # the seed is aux column 4: the batched kernel with cdt agrees
+    bb, bm = qfops.fused_filter_bounds_batched(
+        *[x.to(cuda) for x in (sc, fd, qfd, vh, qvh, eh, qeh, ds, qsig,
+                               aux, cdt)])
+    assert torch.equal(bb[0], kb) and torch.equal(bm[0], km)
+
+
+@pytest.mark.parametrize("n_bits", [1, 8192, 300000])
+def test_rank_popcount_kernel_equals_plain_version(cuda, n_bits):
+    rng = np.random.default_rng(n_bits)
+    bits = rng.integers(0, 2, n_bits)
+    words = torch.from_numpy(rpops.pack_bits_u32(bits).view(np.int32)
+                             ).to(cuda)
+    before = rpk.block_popcounts.launches
+    got = rpk.block_popcounts(words)
+    torch.cuda.synchronize()
+    assert rpk.block_popcounts.launches == before + 1
+    assert torch.equal(got, rpref.block_popcounts_ref(words))
+    w, cum = rpops.build_rank_dictionary(bits)            # the card
+    idx = torch.from_numpy(rng.integers(0, n_bits + 1, 64)).to(cuda)
+    assert w.device.type == "cuda"
+    assert torch.equal(rpops.rank1_query(w, cum, idx),
+                       rpref.rank1_query_ref(w, idx))
+
+
+def test_packed_slab_cuda_equals_torch_and_numpy(cuda):
+    """The packed slab on the card: one bit-unpack launch and one filter
+    launch per non-empty bucket, and the cuda backend's candidates,
+    bounds, LBs and matches equal the torch (plain versions on the card)
+    and numpy backends'."""
+    from repro_torch.core.engine import bucket_queries
+    from repro_torch.core.search import FlatMSQIndex
+    from repro_torch.graphs.generators import aids_like_db, perturb_graph
+    from repro_torch.serve.graph_engine import GraphQuery, GraphQueryEngine
+    db = aids_like_db(400, seed=3)
+    idx = FlatMSQIndex(db)
+    rng = np.random.default_rng(6)
+    graphs = [perturb_graph(db[int(i)], 2, rng, db.n_vlabels, db.n_elabels)
+              for i in rng.choice(len(db), 16)]
+    taus = [3] * len(graphs)
+    ev = idx.filter_eval("numpy", slab="packed")
+    n_buckets = sum(1 for r in bucket_queries(idx.partition, graphs, taus)
+                    if len(ev.graphs_in_rect(r)))
+    b0, f0 = buk.bitunpack_call.launches, qfk.fused_batched_call.launches
+    cb = idx.batched_candidates(graphs, taus, slab="packed")
+    assert buk.bitunpack_call.launches == b0 + n_buckets
+    assert qfk.fused_batched_call.launches == f0 + n_buckets
+    for kw in (dict(backend="torch", device=cuda), dict(backend="numpy")):
+        other = idx.batched_candidates(graphs, taus, slab="packed", **kw)
+        assert cb.ids == other.ids
+        for x, y in zip(cb.bounds + cb.lbs, other.bounds + other.lbs):
+            assert np.array_equal(x, y)
+    got = GraphQueryEngine(idx, slab_layout="packed").submit(
+        [GraphQuery(g, 3) for g in graphs])
+    want = GraphQueryEngine(idx, backend="numpy").submit(
+        [GraphQuery(g, 3) for g in graphs])
+    for a, b in zip(got, want):
+        assert a.candidates == b.candidates and a.matches == b.matches

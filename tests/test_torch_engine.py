@@ -7,7 +7,9 @@ a batch of range queries goes through the JAX package's engine on its
 device='cpu'`` (the kernels' plain versions) and on ``backend='numpy'``.
 Candidates, filter bounds, assignment LBs, matches and the worklist
 counters (``verified_pairs``, ``lb_pruned``, ``lb_tightened``) must be
-identical, on the dense and the hot slab, with the LB stage on.
+identical, on the dense, hot and packed slabs, with the LB stage on; on
+the packed slab the JAX package's ``jax`` backend (which decodes the
+packed rows with ``unpack_rows_ref``) is a second reference.
 """
 import dataclasses
 
@@ -95,20 +97,54 @@ def test_convert_and_load_carry_the_db_across(dbs, tmp_path):
     _same_db(jdb, GraphDB.load(path))
 
 
-@pytest.mark.parametrize("layout,hot_d", [("dense", None), ("hot", HOT_D)])
+@pytest.mark.parametrize("layout,hot_d", [("dense", None), ("hot", HOT_D),
+                                          ("packed", None)])
 def test_filter_slab_equals_jax_package(indexes, layout, hot_d):
     j, p = indexes
     a = JSlab.build(j.db, j.enc, j.partition, layout=layout, hot_d=hot_d)
     b = FilterSlab.build(p.db, p.enc, p.partition, layout=layout, hot_d=hot_d)
     assert (a.U, a.hot_d, a.vmax) == (b.U, b.hot_d, b.vmax)
-    assert b.hot_d < b.U or layout == "dense"
+    assert b.hot_d < b.U or layout != "hot"
     fields = ["nv", "ne", "degseq", "vhist", "ehist", "region_i",
-              "region_j", "fd", "bvlab", "bdeg", "behist"]
+              "region_j", "bvlab", "bdeg", "behist"]
     if layout == "hot":
         fields += ["t_off", "t_ids", "t_cnt"]
+    if layout == "packed":
+        assert a.fd is None and b.fd is None
+        for f in ("words", "sb", "widths"):
+            assert np.array_equal(getattr(a.packed, f), getattr(b.packed, f))
+        assert a.packed.n_entries == b.packed.n_entries == b.U
+        assert np.array_equal(a.fd_dense_np(), b.fd_dense_np())
+    else:
+        fields.append("fd")
     for f in fields:
         assert np.array_equal(getattr(a, f), getattr(b, f)), f
     assert a.size_bits() == b.size_bits()
+    assert a.bits_per_graph() == b.bits_per_graph()
+
+
+def test_packed_gather_equals_jax_package(indexes):
+    """A bucket's gathered packed sub-slab, pad rows included: the same
+    words / offsets / widths as the JAX package's, pad rows decode to
+    zeros and stay out of every region, and the host C_D of a query
+    equals the dense slab's."""
+    j, p = indexes
+    a = JSlab.build(j.db, j.enc, j.partition, layout="packed")
+    b = FilterSlab.build(p.db, p.enc, p.partition, layout="packed")
+    dense = FilterSlab.build(p.db, p.enc, p.partition, layout="dense")
+    idx = np.arange(3, 200, 7)
+    sa, sb_ = a.gather(idx, 40), b.gather(idx, 40)
+    for f in ("words", "sb", "widths"):
+        assert np.array_equal(getattr(sa.packed, f), getattr(sb_.packed, f))
+    fd = sb_.fd_dense_np()
+    assert np.array_equal(fd, sa.fd_dense_np())
+    assert np.array_equal(fd[:len(idx)], dense.fd[idx])
+    assert not fd[len(idx):].any()
+    assert (sb_.region_i[len(idx):] == -(2 ** 20)).all()
+    assert sb_.base_arrays().fd.shape == (40, 1)
+    qfd = dense.fd[idx[0]].astype(np.int64)
+    assert np.array_equal(sb_.cd_one(qfd),
+                          dense.gather(idx, 40).cd_one(qfd))
 
 
 def test_config_equals_jax_package():
@@ -134,11 +170,11 @@ def test_scalar_candidates_equal_jax_package(indexes, queries):
             assert p.candidates(pq, tau) == j.candidates(jq, tau)
 
 
-def _run_ref(j, jq, tau, layout):
+def _run_ref(j, jq, tau, layout, backend="numpy"):
     hot_d = HOT_D if layout == "hot" else None
-    batch = j.batched_candidates(jq, [tau] * len(jq), backend="numpy",
+    batch = j.batched_candidates(jq, [tau] * len(jq), backend=backend,
                                  slab=layout, hot_d=hot_d)
-    eng = JEngine(j, backend="numpy", slab_layout=layout, hot_d=hot_d)
+    eng = JEngine(j, backend=backend, slab_layout=layout, hot_d=hot_d)
     res = eng.submit([JQuery(g, tau) for g in jq])
     return batch, res, {k: eng.stats[k] for k in STATS}
 
@@ -147,10 +183,11 @@ def _run_ref(j, jq, tau, layout):
 def ref_runs(indexes, queries):
     cache = {}
 
-    def get(tau, layout):
-        if (tau, layout) not in cache:
-            cache[tau, layout] = _run_ref(indexes[0], queries[0], tau, layout)
-        return cache[tau, layout]
+    def get(tau, layout, backend="numpy"):
+        if (tau, layout, backend) not in cache:
+            cache[tau, layout, backend] = _run_ref(
+                indexes[0], queries[0], tau, layout, backend)
+        return cache[tau, layout, backend]
     return get
 
 
@@ -170,7 +207,7 @@ def _check_same(batch, res, stats, want):
 
 
 @pytest.mark.parametrize("kw", PORT_BACKENDS, ids=["torch-cpu", "numpy"])
-@pytest.mark.parametrize("layout", ["dense", "hot"])
+@pytest.mark.parametrize("layout", ["dense", "hot", "packed"])
 @pytest.mark.parametrize("tau", [1, 3])
 def test_range_queries_equal_jax_package(indexes, queries, ref_runs, tau,
                                          layout, kw):
@@ -186,6 +223,40 @@ def test_range_queries_equal_jax_package(indexes, queries, ref_runs, tau,
     assert sum(len(c) for c in batch.ids) > 0
     if tau == 3:
         assert sum(len(r.matches) for r in res) > 0
+
+
+@pytest.mark.parametrize("kw", PORT_BACKENDS, ids=["torch-cpu", "numpy"])
+def test_packed_range_queries_equal_jax_backend(indexes, queries, ref_runs,
+                                                kw):
+    """The packed slab against the JAX package's ``jax`` backend, whose
+    pass decodes the packed rows on its device (``unpack_rows_ref``)."""
+    p = indexes[1]
+    pq = queries[1]
+    want = ref_runs(3, "packed", "jax")
+    _check_same(*want[:2], want[2], ref_runs(3, "dense"))
+    batch = p.batched_candidates(pq, [3] * len(pq), slab="packed", **kw)
+    eng = GraphQueryEngine(p, slab_layout="packed", **kw)
+    res = eng.submit([GraphQuery(g, 3) for g in pq])
+    _check_same(batch, res, {k: eng.stats[k] for k in STATS}, want)
+
+
+def test_packed_torch_pass_decodes_each_launch(indexes, queries):
+    """The torch backend keeps the bucket's packed rows in the device
+    cache (no dense F_D field) and its bounds equal the dense slab's."""
+    p = indexes[1]
+    pq = queries[1]
+    taus = [3] * len(pq)
+    got = p.batched_candidates(pq, taus, backend="torch", device="cpu",
+                               slab="packed")
+    want = p.batched_candidates(pq, taus, backend="torch", device="cpu")
+    assert got.ids == want.ids
+    for a, b in zip(got.bounds, want.bounds):
+        assert np.array_equal(a, b)
+    ev = p.filter_eval("torch", device="cpu", slab="packed")
+    fields = set()
+    for entry in ev.device_cache._entries.values():
+        fields |= set(entry)
+    assert "packed" in fields and "fd" not in fields
 
 
 @pytest.fixture(scope="module")

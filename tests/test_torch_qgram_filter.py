@@ -5,9 +5,13 @@ The plain PyTorch version (``ref.fused_batched_bounds``) must equal the
 JAX package's oracle (``fused_batched_bounds_ref``) and its Pallas kernel
 in interpret mode, bit for bit (every value is an int32: tolerance zero),
 on ragged shapes with a non-zero C_D seed and with region geometry whose
-floor-divided numerators and region coordinates go negative.  The CUDA
-kernel itself is compared with the plain version on the card
-(``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+floor-divided numerators and region coordinates go negative.  The
+single-query cascade (``ref.fused_filter_bounds``,
+``ops.fused_filter_bounds``) is held the same way against
+``fused_filter_bounds_ref`` and the single-query Pallas kernel, with and
+without its aux column-4 C_D seed.  The CUDA kernels themselves are
+compared with the plain versions on the card (``tests/test_torch_cuda.py``
+and ``chip_smoke.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +19,8 @@ import pytest
 import torch
 
 from repro.kernels.qgram_filter import ops as jops
-from repro.kernels.qgram_filter.ref import fused_batched_bounds_ref
+from repro.kernels.qgram_filter.ref import (fused_batched_bounds_ref,
+                                            fused_filter_bounds_ref)
 from repro_torch.kernels.qgram_filter import kernel, ops, ref
 
 
@@ -164,3 +169,69 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     want = ref.fused_batched_bounds(*args)
     assert kernel.fused_batched_call.launches == before
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# --------------------------------------------------------------------------
+# the single-query cascade (kernel 4): C_D seeded from aux column 4
+# --------------------------------------------------------------------------
+
+def _single_case(rng, B, U, seeded):
+    """One query's operands from a batched case; aux gains column 4, the
+    C_D seed (zeros when not ``seeded``).  The query is chosen so its
+    region numerators go negative."""
+    case = _case(rng, 4, B, U)
+    r = int(np.argmin(_region_numerators(case).min(0)))
+    sc, fd, qfd, vh, qvh, eh, qeh, ds, qsig, aux, _ = case
+    seed = rng.integers(0, 4, (B, 1)) if seeded else np.zeros((B, 1))
+    aux5 = np.concatenate([aux, seed], 1)
+    return tuple(np.ascontiguousarray(x, np.int32) for x in
+                 (sc[r], fd, qfd[r], vh, qvh[r], eh, qeh[r], ds, qsig[r],
+                  aux5))
+
+
+SINGLE_SHAPES = [(7, 33), (64, 256), (130, 700)]
+
+
+@pytest.mark.parametrize("seeded", [True, False], ids=["seed", "no-seed"])
+@pytest.mark.parametrize("B,U", SINGLE_SHAPES)
+def test_single_query_equals_pallas_interpret(B, U, seeded):
+    rng = np.random.default_rng(B * 3 + U + seeded)
+    case = _single_case(rng, B, U, seeded)
+    assert (_region_numerators((case[0][None],)) < 0).any()
+    want_b, want_m = jops.fused_filter_bounds(
+        *[jnp.asarray(x) for x in case], interpret=True)
+    got_b, got_m = ops.fused_filter_bounds(*_torch(case),
+                                           fn=ref.fused_filter_bounds)
+    assert got_b.shape == (B,) and got_b.dtype == torch.int32
+    assert np.array_equal(got_b.numpy(), np.asarray(want_b))
+    assert np.array_equal(got_m.numpy(), np.asarray(want_m))
+    assert 0 < int(got_m.sum()) < B
+    # the wrapper on CPU tensors is the plain version, with no launch
+    before = kernel.fused_filter_call.launches
+    kb, km = ops.fused_filter_bounds(*_torch(case))
+    assert kernel.fused_filter_call.launches == before
+    assert torch.equal(kb, got_b) and torch.equal(km, got_m)
+
+
+@pytest.mark.parametrize("B,U", SINGLE_SHAPES)
+def test_single_query_ref_equals_jax_ref(B, U):
+    rng = np.random.default_rng(B + U)
+    case = _single_case(rng, B, U, True)
+    want_b, want_m = fused_filter_bounds_ref(*[jnp.asarray(x) for x in case])
+    got_b, got_m = ref.fused_filter_bounds(*_torch(case))
+    assert np.array_equal(got_b.numpy(), np.asarray(want_b))
+    assert np.array_equal(got_m.numpy(), np.asarray(want_m))
+
+
+def test_single_query_seed_moves_the_degree_qgram_bound():
+    """The seed is added to C_D: a negative seed raises the degree-q-gram
+    bound until it binds, so bounds with and without it differ."""
+    rng = np.random.default_rng(21)
+    case = list(_single_case(rng, 64, 128, False))
+    plain_b, _ = ref.fused_filter_bounds(*_torch(case))
+    case[9] = case[9].copy()
+    case[9][:, 4] = -1000
+    seeded_b, _ = ref.fused_filter_bounds(*_torch(case))
+    assert (seeded_b >= plain_b).all() and (seeded_b > plain_b).any()
+    want_b, _ = fused_filter_bounds_ref(*[jnp.asarray(x) for x in case])
+    assert np.array_equal(seeded_b.numpy(), np.asarray(want_b))
